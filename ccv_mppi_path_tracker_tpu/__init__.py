@@ -1,4 +1,4 @@
-"""ccv_mppi_path_tracker_tpu — a TPU-native MPPI path-tracking framework.
+"""ccv_mppi_path_tracker_tpu — a GPU-accelerated MPPI path-tracking framework.
 
 A ground-up re-design of the capabilities of the reference ROS/catkin package
 ``YoshikiMaekawa2000/ccv_mppi_path_tracker`` (three C++ MPPI controller nodes,
@@ -16,7 +16,8 @@ JAX/Pallas framework:
 - ``runtime``  — closed-loop simulation driver, state estimation adapters,
                  checkpoint/resume.
 - ``diff``     — differentiable MPPI: gradients through rollouts, system ID.
-- ``kernels``  — Pallas TPU kernels for the hot fused stages.
+- ``kernels``  — the fused Pallas (Triton-route) GPU kernel of the control
+                 update.
 - ``metrics``  — tracking RMSE/max-error evaluators, per-step solver stats,
                  CSV recording (reference: src/record_state.py, calc_e_rmse.py).
 - ``oracle``   — NumPy re-statement of the C++ semantics for parity testing.

@@ -64,9 +64,9 @@ def _add_run_args(p, kernel_flags=True):
         return  # export pins the XLA path (jax.export of StableHLO)
     kg = p.add_mutually_exclusive_group()
     kg.add_argument("--kernel", action="store_true",
-                    help="force the fused Pallas kernel path (default: auto "
-                         "— kernel iff measured faster for this "
-                         "model/workload on a TPU backend, "
+                    help="force the fused Pallas kernel path (GPU only; "
+                         "default: auto — kernel iff measured faster for "
+                         "this model/size on this GPU kind, "
                          "kernels.should_use_kernel)")
     kg.add_argument("--no-kernel", action="store_true",
                     help="force the XLA pipeline (disable auto selection)")
@@ -146,8 +146,8 @@ def cmd_run(args):
         opts["elite_frac"] = args.elite_frac
     animate = getattr(args, "animate", None)
     # path selection: --kernel / --no-kernel force; default auto picks the
-    # measured-faster path (kernel only on TPU above the per-model
-    # crossover). --animate needs the XLA-only candidate debug output, so
+    # measured-faster path (kernel only on a GPU kind with a measured
+    # threshold, at or above it). --animate needs the XLA-only candidate debug output, so
     # auto stays on XLA for it.
     if animate and not (args.kernel or args.no_kernel):
         use_kernel = False
@@ -426,7 +426,7 @@ def cmd_fleet(args):
           f"{'kernel' if use_kernel else 'xla'} path")
     print(f"RMSE mean={np.mean(rmses):.3f} worst={np.max(rmses):.3f}")
     print(f"wall: {wall:.2f} s = {B * args.steps / wall:,.0f} robot-updates/s "
-          f"(host-loop; see BENCH_DETAIL.md for device-rate numbers)")
+          f"(host loop; bench.py times the device-side update)")
     return 0
 
 

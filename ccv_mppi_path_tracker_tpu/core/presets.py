@@ -84,7 +84,7 @@ def full_body_launch(num_samples=10000, horizon=15, dtype=np.float32, roll_off=T
 def rate_limited_launch(num_samples=10000, horizon=15, dtype=np.float32):
     """Tuned operating point for the rate-limited steering family (a
     beyond-reference model, BASELINE.md) on the diff-drive course. Single
-    home for the config bench.py / bench_suite.py / tpu_smoke.py share."""
+    home for the config bench.py and chip_smoke.py share."""
     cfg, sp, cp = rate_limited_steering_config(
         num_samples=num_samples, horizon=horizon, path_weight=10.0,
         dtype=dtype,

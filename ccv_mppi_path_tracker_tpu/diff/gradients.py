@@ -132,8 +132,10 @@ def gauss_newton_refine(
         u, lam_damp, cost = carry
         r = f(u)
         jac = jax.jacfwd(f)(u).reshape(r.shape[0], n)
-        g = jac.T @ r
-        hess = jac.T @ jac + lam_damp * eye
+        # f32 products on the GPU default to TF32; keep full precision
+        hi = jax.lax.Precision.HIGHEST
+        g = jnp.matmul(jac.T, r, precision=hi)
+        hess = jnp.matmul(jac.T, jac, precision=hi) + lam_damp * eye
         delta = jnp.linalg.solve(hess, g)
         u_new = jnp.clip(u - delta.reshape(u.shape), sp.u_min, sp.u_max)
         r_new = f(u_new)

@@ -24,7 +24,7 @@ it pays — e.g. sharpening or flattening the weight profile per cost scale,
 or over/under-relaxing the step — and the rule stays permutation-equivariant
 over samples (the MLP is applied pointwise per candidate).
 
-Everything is plain jax + optax pytrees, shaped for the MXU: the per-sample
+Everything is plain jax + optax pytrees, shaped for matrix units: the per-sample
 MLP is a (K, F) x (F, H) matmul, the update contraction a (K,) x (T-1, K, U)
 einsum — identical compute pattern to the vanilla path.
 """
@@ -133,7 +133,8 @@ def learned_update_step(
 
     weights = learned_weights(rule, costs, sp.lam)
     u_bar = jnp.einsum(
-        "k,tku->tu", weights, u_samples, preferred_element_type=u_samples.dtype
+        "k,tku->tu", weights, u_samples, preferred_element_type=u_samples.dtype,
+        precision=jax.lax.Precision.HIGHEST,
     )
     gain = jnp.exp(rule.log_gain)
     u_opt = jnp.clip(

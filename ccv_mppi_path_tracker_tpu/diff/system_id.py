@@ -137,8 +137,7 @@ def rollout_prediction_value_and_grad(
     DP all-reduce (SURVEY.md section 2.5/section 5: "gradient all-reduce
     overlapped with backward"). The math is identical up to FP
     re-association of the equal-size bucket sums (measured bit-tight at
-    f64: tests/test_multiprocess.py); measured timings live in
-    BENCH_DETAIL.md.
+    f64: tests/test_multiprocess.py).
     """
     b_local = state0.shape[0]
     assert b_local % num_chunks == 0, (b_local, num_chunks)

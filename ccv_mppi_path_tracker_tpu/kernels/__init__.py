@@ -1,14 +1,14 @@
 from ccv_mppi_path_tracker_tpu.kernels.rollout_cost import (
-    K_TILE,
-    KERNEL_MIN_PROPS,
+    KERNEL_MODELS,
+    combine_partials,
     fused_sample_rollout_cost,
     pack_scalars,
     should_use_kernel,
 )
 
 __all__ = [
-    "K_TILE",
-    "KERNEL_MIN_PROPS",
+    "KERNEL_MODELS",
+    "combine_partials",
     "fused_sample_rollout_cost",
     "pack_scalars",
     "should_use_kernel",

@@ -1,74 +1,62 @@
-"""Pallas TPU kernel: fused sample + rollout + cost + weighted update.
+"""Fused sample + rollout + cost + weighted-update kernel (Pallas, Triton route).
 
-The XLA pipeline materializes the (T, K, S) rollout and the (T-1, K, U) noise
-in HBM and re-reads them for the cost — at K=100k, T=30 that is ~120 MB of
-HBM traffic per control step (~1.2 GB at K=1M counting the sampled-controls
-round trip for the weighted average). This kernel streams K in tiles held
-entirely in VMEM: controls are clamped in registers, the Euler rollout and
-the O(T*T_ref) min-distance cost run per tile, and the softmax-weighted
-control update is accumulated *online* (running-min baseline with exact
-rescaling, the flash-attention trick applied to MPPI): each grid step folds
-its tile's exp(-(cost - m)/lam)-weighted controls into a (T-1)*U-row
-per-lane partial-sum block, rescaling prior partials when the running min
-improves. Only the (K,) cost vector and that tiny partial block are written
-back; sampled controls and rollout states never touch HBM.
+The XLA pipeline writes the (T, K, S) rollout and the (T-1, K, U) noise and
+sampled controls to device memory and reads them back for the cost and the
+weighted update: ~120 MB per control step at K=1e5, T=30 (~1.2 GB at K=1M),
+spread over dozens of fusions. This kernel keeps every sample's controls and
+states in registers and writes only the K costs plus one small row of
+partial sums per block of samples.
 
-Layouts: samples ride the TPU lane dimension. A tile is (rows, 128) with
-rows <= 64 (tile_rows()); the noise input (when supplied — parity mode) is
-(T-1, U, K/128, 128) so each (t, u) slice loads as native (8, 128) vregs. In RNG mode the kernel
-draws its own normals with the per-core PRNG (Box-Muller over
-``pltpu.prng_random_bits``), eliminating the noise tensor from HBM entirely;
-the stream is seeded per tile so results are deterministic for a given seed
-but are a *different* (equally valid) stream than ``jax.random.normal`` —
-closed-loop behavior is statistically identical, and parity tests use the
-noise-input mode.
+One program handles one power-of-two block of samples (``BLOCK`` of them; the
+padded tail of the last block is masked):
 
-Cost semantics are identical to ops/costs.py (and therefore to the C++
-reference semantics documented there), including the 100 m distance cap and
-the full-body ZMP chain (src/full_body_mppi.cpp:404-424, :445-486).
+- **Pass A** walks the horizon inside the block: draw the noise, colour it
+  (``noise_beta``), clamp, take the Euler step, run the ZMP chain (full_body)
+  and the min-distance scan over the reference window. Result: one cost per
+  sample.
+- **Block-local softmax**: block min ``m_b`` and weights
+  ``w = exp(-(c - m_b)/lam)``, zeroed on the padded tail and above
+  ``cost_thresh`` (elite masking).
+- **Pass B** regenerates the same controls (counter-based RNG: same counters,
+  same numbers) and reduces ``sum w*u`` per (t, u), ``sum w`` and, with
+  ``second_moment``, ``sum w*u^2``. The (T-1)*U*BLOCK controls would not fit
+  a block's registers, so they are drawn twice instead of stored.
+
+Blocks run in parallel and in no order, so nothing is carried between them:
+:func:`combine_partials` rescales each block's partials from ``m_b`` to the
+global min in plain JAX — the same exact rescale algebra the sample-sharded
+path uses across devices.
+
+Random numbers are Threefry-2x32 (20 rounds, the generator behind
+``jax.random``'s default keys) keyed by (seed, 0) over the counter (sample
+index, t * ceil(U/2) + pair), followed by Box-Muller: each counter gives the
+two normals of one control pair. The stream is deterministic for a seed but
+differs from ``jax.random.normal``; parity tests inject the noise instead
+(``noise``), which pass B then re-reads.
+
+Cost semantics are those of ops/costs.py, including the 100 m distance cap
+and the full-body ZMP chain (src/full_body_mppi.cpp:404-424, :445-486).
 """
 
 from __future__ import annotations
 
-import math
-from typing import NamedTuple, Optional
+import functools
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ccv_mppi_path_tracker_tpu.ops.mindist import DIST_CAP, center_ref
+from ccv_mppi_path_tracker_tpu.ops.sampling import STEER_DIM
 
-# Samples per kernel program: up to a (64, 128) tile = 8192 samples. Taller
-# tiles amortize the t-loop / ref-loop control overhead over more vector
-# registers (8 rows measured ~2x slower at large K), but the (T-1, U, rows,
-# 128) controls scratch must fit VMEM, so the tile height shrinks
-# automatically at large horizons (see tile_rows()).
-K_TILE = 8192
-_LANES = 128
-# VMEM budget for the controls scratch (+ double-buffered noise input block
-# in parity mode); chip VMEM is 16 MB.
-_VMEM_BUDGET = 12 * 1024 * 1024
-
-
-# Crossovers measured on TPU v5e (BENCH_DETAIL.md). The round-3 XLA
-# pipeline (hardware-RNG sampling + MXU prefix-sum rollout) moved the
-# cheap-model crossovers far up: same-window interleaved probes measured
-# XLA winning every 2-3-control config at K*(T-1) <= 3.0e6 (e.g.
-# steering K=102400 T=30: 0.65 vs 1.21 ms) and the kernel winning at
-# 9.5e6 (K=327680 T=30: 1.14 vs 2.85) through 29.7e6 (K=1M: 3.7 vs 11.3);
-# the threshold sits at the measured 9.5e6 win so "auto" never picks a
-# slower path. full_body's per-propagation work (5 controls + ZMP chain)
-# keeps its kernel competitive from the reference's own operating point
-# (K=10240 T=15: 1.18 vs 1.20 ms, a tie) and clearly ahead at the
-# flagship (0.87-1.05 vs 1.45-1.49). The scalar props = K*(T-1) proxy
-# generalizes each measured (K, T) point to nearby shapes; extreme aspect
-# ratios are covered by the K=102400 T=100 row. On device kinds other
-# than v5e these literals are NOT trusted: kernels/autotune.py keys the
-# verdict by device_kind and micro-calibrates unknown hardware.
-KERNEL_MIN_PROPS = 9_500_000
-KERNEL_MIN_PROPS_BY_MODEL = {"full_body": 140_000}
+# Samples per program and warps per program: one sample per thread. On an
+# H100 (700 W) this beat 64..512-sample blocks with 2..16 warps at full_body
+# K=102400 and K=1048576, T=30 (PERF.md, Findings).
+BLOCK = 128
+NUM_WARPS = 4
 
 # Model families the fused kernel implements; "auto" must fall back to the
 # XLA pipeline for anything else (e.g. user-registered models).
@@ -76,747 +64,302 @@ KERNEL_MODELS = (
     "unicycle", "steering_unicycle", "rate_limited_steering", "full_body"
 )
 
-# Op groups of the full_body kernel body, in progressive-arm order. The
-# floor-accounting ablation (scripts/kernel_floor.py) re-enables them one at
-# a time on an otherwise no-op body — "sample" is the control sampling loop,
-# "loop" the t-loop control + u_out VMEM reads, "euler" the kinematic
-# integration, "zmp" every non-path cost term plus the ZMP chain, "dist" the
-# min-distance scan + path cost. Groups a disabled arm would dead-code
-# -eliminate are anchored through a runtime-zero SMEM "probe" scalar the
-# compiler cannot fold (see _make_kernel).
-GROUPS = ("sample", "loop", "euler", "zmp", "dist")
-_ALL_GROUPS = frozenset(GROUPS)
+# use_kernel="auto": the fused kernel is chosen at or above this many state
+# propagations per update, K * (T-1), on the device kinds it was timed on.
+# Any other device kind gets the XLA pipeline (see should_use_kernel). On an
+# H100 (700 W) the kernel's full control update beat XLA's at every size
+# timed, unicycle and full_body, K=1000..1048576, T=15 and 30 (bench.py;
+# PERF.md); the threshold is the smallest of them, unicycle K=1000 T=15.
+KERNEL_MIN_PROPS_BY_KIND: dict[str, int] = {
+    "NVIDIA H100 80GB HBM3": 1000 * 14,
+}
 
+# scalar-parameter slots (pack_scalars)
+# [dt, v_ref, path_w, v_w, zmp_w, roll_v_w, back_w, yaw_w, yaw_ref0,
+#  mass, base2com, Ixx, Iyy, Izz, gravity_z, noise_beta, lam, cost_thresh]
+# cost_thresh (+inf = vanilla) zeroes the weight of samples above it
+# (elite_frac; ops/softmax_update.py elite_threshold supplies the exact rank
+# threshold and the solver makes a second, costs-in pass with it).
+_NSCAL = 18
 
-class KernelVariant(NamedTuple):
-    """Static kernel-structure switches, consulted at TRACE time.
-
-    Production serving always uses ``DEFAULT_VARIANT`` — the measured
-    winners (artifacts/ab_mindist.json, artifacts/ab_tloop2.json); the
-    other values are kept as A/B experiment arms, passed explicitly by the
-    ablation scripts (no module-global monkey-patching).
-
-    tloop — time-loop structure:
-      - "fori": dynamic u_out indexing, small program (production default)
-      - "unroll": constant indices, fully unrolled (compile-heavy)
-      - "block4": 4 t-steps per fori iteration — loop control +
-        dynamic-index overhead amortized 4x, constant-index epilogue
-      - "regen" (full_body RNG mode only): dependency-breaking — controls
-        are NEVER written to the u_out VMEM scratch; the rollout draws them
-        on the fly and the update loop re-seeds the per-tile PRNG and
-        regenerates the identical stream (the trick the elite second pass
-        uses across kernel invocations). White noise only (noise_beta must
-        be 0 — enforced where it is statically known).
-      - "half2" (full_body only): two independent half-tile chains through
-        one t-loop so one chain's VPU work hides the other's latency.
-      - "carry5" (full_body only): carry step t+1's five control tiles in
-        registers so each iteration issues 5 dynamic-indexed u_out reads
-        instead of 7 (bit-exact vs fori).
-      - "rowload" (full_body only): one dynamic-indexed load of the whole
-        control row per step — 3 dynamic indexes per iteration instead of
-        7, same tile traffic (bit-exact vs fori).
-      All measured same-window at K=1M T=30: artifacts/ab_tloop2.json.
-
-    dist_form — "expanded" (3-op centered expanded form, production) |
-      "difference" (5-op (x-rx)^2+(y-ry)^2 on centered coordinates).
-    mindist_unroll — "chunk" (8-point fori body, production) | "full"
-      (fully unrolled constant-index scan; compile-heavy at large T*T_ref).
-
-    groups — frozenset of enabled full_body op groups (see GROUPS); only
-      the floor-accounting arms shrink it. Non-full_body models require the
-      full set.
-    """
-
-    tloop: str = "fori"
-    dist_form: str = "expanded"
-    mindist_unroll: str = "chunk"
-    groups: frozenset = _ALL_GROUPS
-
-
-DEFAULT_VARIANT = KernelVariant()
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
 def should_use_kernel(num_samples: int, horizon: int,
-                      backend: Optional[str] = None,
-                      model: Optional[str] = None) -> bool:
-    """use_kernel="auto" policy: kernel iff the workload is big enough to
-    amortize the launch/setup cost (per-model measured crossover when
-    ``model`` is given) AND the default backend is a real TPU — off-TPU the
-    RNG-mode kernel cannot run (``pltpu.prng_seed`` has no CPU/GPU lowering;
-    interpret mode is for noise-injected parity tests, not serving) and
-    would be far slower even if it lowered. Any K is accepted (the kernel
-    masks the padded tail — ``padded_k``), so the reference's own K=10000
-    full_body operating point picks the kernel under auto. ``backend``
-    overrides the detected default (tests)."""
-    if backend is None:
-        backend = jax.default_backend()
+                      model: Optional[str] = None,
+                      device_kind: Optional[str] = None) -> bool:
+    """use_kernel="auto" policy: the fused kernel iff the default backend is
+    a GPU whose ``device_kind`` has a measured threshold, the model is one
+    the kernel implements, and K*(T-1) reaches that threshold. ``device_kind``
+    overrides the detected one (tests)."""
     if model is not None and model not in KERNEL_MODELS:
         return False
-    if backend != "tpu":
+    if device_kind is None:
+        if jax.default_backend() != "gpu":
+            return False
+        device_kind = jax.devices()[0].device_kind
+    min_props = KERNEL_MIN_PROPS_BY_KIND.get(device_kind)
+    if min_props is None:
+        _log_unmeasured_kind(device_kind)
         return False
-    if jax.default_backend() == "tpu":
-        # device-kind-aware: measured table for known kinds, disk-cached
-        # micro-calibration for unknown ones (kernels/autotune.py)
-        from ccv_mppi_path_tracker_tpu.kernels.autotune import resolve_auto
-
-        return resolve_auto(num_samples, horizon, model)
-    # backend forced to "tpu" off-TPU (tests): v5e measured literals
-    min_props = KERNEL_MIN_PROPS_BY_MODEL.get(model, KERNEL_MIN_PROPS)
     return num_samples * (horizon - 1) >= min_props
 
 
-def tile_rows(horizon: int, u_dim: int, with_noise_input: bool,
-              num_samples: int | None = None) -> int:
-    """Tile height whose controls buffers fit the VMEM budget; when
-    ``num_samples`` is given, the height that minimizes the padded-tail
-    waste (``padded_k``), ties broken toward taller tiles."""
-    # controls live in a single (not double-buffered) VMEM scratch; in parity
-    # mode the noise input block is double-buffered by the pipeline on top.
-    factor = 3 if with_noise_input else 1
-    # Candidates step by the 8-sublane vreg height. Non-power-of-two heights
-    # matter: K=102400 is 800 lane-rows, which 64 doesn't divide but 40 does —
-    # without them the flagship config would pay a 6.5k-sample padded tail.
-    fits = [
-        rows for rows in (64, 56, 48, 40, 32, 24, 16, 8)
-        if factor * (horizon - 1) * u_dim * rows * _LANES * 4 <= _VMEM_BUDGET
-    ]
-    if not fits:
-        return 8
-    if num_samples is None:
-        return fits[0]
-    return max(fits, key=lambda r: (num_samples / padded_k(num_samples, r), r))
+@functools.cache
+def _log_unmeasured_kind(device_kind: str) -> None:
+    print(f"use_kernel='auto': no kernel timing for device kind "
+          f"{device_kind!r}; using the XLA pipeline")
 
 
-def padded_k(num_samples: int, rows: int) -> int:
-    """num_samples rounded up to a whole number of (rows, 128) tiles. The
-    kernel zero-weights the padded tail exactly (validity mask on the online
-    update), so ANY K is accepted — e.g. the reference full_body default
-    K=10000 (src/full_body_mppi.cpp:10) runs as 10240 lanes with 240 masked."""
-    tile = rows * _LANES
-    return -(-num_samples // tile) * tile
+def block_size(num_samples: int) -> int:
+    """Samples per program: ``BLOCK``, or the next power of two >= K when K
+    is smaller (at least 32, one warp's width)."""
+    return min(BLOCK, max(32, pl.next_power_of_2(num_samples)))
 
 
-def tile_noise(noise: jax.Array, k_pad: int) -> jax.Array:
-    """(T-1, K, U) standard normals -> the kernel's padded tile layout
-    (T-1, U, k_pad/128, 128); the zero-padded tail is masked out in-kernel."""
-    tm1, k, u_dim = noise.shape
-    if k_pad != k:
-        noise = jnp.pad(noise, ((0, 0), (0, k_pad - k), (0, 0)))
-    return jnp.transpose(noise, (0, 2, 1)).reshape(
-        tm1, u_dim, k_pad // _LANES, _LANES
-    )
-
-# scalar-param vector layout (SMEM)
-# [dt, v_ref, path_w, v_w, zmp_w, roll_v_w, back_w, yaw_w, yaw_ref0,
-#  mass, base2com, Ixx, Iyy, Izz, gravity_z, noise_beta, lam, cost_thresh]
-# cost_thresh (+inf = vanilla) implements elite_frac: samples with cost above
-# it get zero weight in the online update (ops/softmax_update.py
-# elite_threshold supplies the globally-exact rank threshold; the solver
-# makes a second kernel pass with it — same seed, identical samples).
-# The wrapper appends slot 18 = probe (always 0.0 at runtime; the group
-# -ablation arms multiply otherwise-dead values by it so the compiler keeps
-# them — unused and folded away in production variants) and slot 19 =
-# num_valid (true K before tile padding; exact in f32 up to 2^24): sample
-# indices >= it get zero weight.
-_NSCAL = 18
+def num_slots(horizon: int, u_dim: int, second_moment: bool) -> int:
+    """Width of one block's partials row: (T-1)*U sums of w*u, as many of
+    w*u^2 with ``second_moment``, the sum of w, and the block min, padded to
+    a power of two."""
+    nu = (horizon - 1) * u_dim * (2 if second_moment else 1)
+    return pl.next_power_of_2(nu + 2)
 
 
-def _normals_pair(shape):
-    """TWO independent standard-normal tiles via Box-Muller.
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32, 20 rounds, on uint32 arrays (jnp ops only, so the same
+    code runs inside the kernel and outside it). Same function as
+    ``jax.random``'s threefry2x32 for key (k0, k1) and counter (x0, x1)."""
+    k2 = k0 ^ k1 ^ np.uint32(0x1BD11BDA)
+    ks = (k0, k1, k2)
+    x0 = x0 + k0
+    x1 = x1 + k1
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
+            x1 = x0 ^ x1
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
 
-    One (log1p, sqrt) pair serves both outputs — discarding the sine half
-    would double the transcendental cost of sampling, which rivals the
-    min-distance scan in op count at full-body shapes.
-    """
-    def unif():
-        bits = pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.uint32)
-        # 23 high bits -> [0, 1). Logical shift as uint32 (arithmetic shift
-        # on the raw int32 would sign-extend), then bitcast back to int32 —
-        # the value is < 2^23 so it reads positive, and Mosaic supports the
-        # int32->f32 cast where uint32->f32 is unimplemented.
-        hi = pltpu.bitcast(bits >> 9, jnp.int32)
-        return hi.astype(jnp.float32) * (1.0 / (1 << 23))
 
-    u1 = unif()
-    u2 = unif()
-    r = jnp.sqrt(-2.0 * jnp.log1p(-u1))  # log1p(-u) avoids log(0)
-    theta = 2.0 * math.pi * u2
+def box_muller(b0, b1):
+    """Two uint32 words -> two independent standard normals. 24 bits each:
+    u1 in (0, 1] keeps the log finite, u2 in [0, 1) sets the angle."""
+    scale = np.float32(1.0 / (1 << 24))
+    u1 = ((b0 >> np.uint32(8)) + np.uint32(1)).astype(jnp.float32) * scale
+    u2 = (b1 >> np.uint32(8)).astype(jnp.float32) * scale
+    r = jnp.sqrt(np.float32(-2.0) * jnp.log(u1))
+    theta = np.float32(2.0 * np.pi) * u2
     return r * jnp.cos(theta), r * jnp.sin(theta)
 
 
-def _make_normal_stream(shape):
-    """Stateful draw of one normal tile at a time, consuming Box-Muller
-    outputs in pairs (the second half is held over to the next call)."""
-    held = []
-
-    def draw():
-        if held:
-            return held.pop()
-        n1, n2 = _normals_pair(shape)
-        held.append(n2)
-        return n1
-
-    return draw
+def kernel_normals(seed, sample_idx, t, u_dim: int):
+    """The U standard normals the kernel draws for step ``t`` of the samples
+    ``sample_idx`` (uint32) under ``seed`` (uint32): pair p of the controls
+    comes from counter (sample, t*ceil(U/2) + p)."""
+    n_pairs = (u_dim + 1) // 2
+    etas = []
+    for p in range(n_pairs):
+        c1 = jax.lax.convert_element_type(t * n_pairs + p, jnp.uint32)
+        b0, b1 = threefry2x32(seed, np.uint32(0), sample_idx,
+                              jnp.broadcast_to(c1, sample_idx.shape))
+        etas.extend(box_muller(b0, b1))
+    return etas[:u_dim]
 
 
 def _make_kernel(model: str, horizon: int, num_ref: int, u_dim: int,
-                 with_noise_input: bool, steer_off: bool, rows: int,
-                 batched: bool = False, second_moment: bool = False,
-                 accumulate: bool = True, masked: bool = False,
-                 costs_in: bool = False,
-                 variant: KernelVariant = DEFAULT_VARIANT):
+                 n_state: int, block: int, num_samples: int, *,
+                 noise_in: bool, steer_off: bool, second_moment: bool,
+                 accumulate: bool, costs_in: bool):
     tm1 = horizon - 1
-    cap2 = DIST_CAP * DIST_CAP
-    _ROWS = rows
-    assert not costs_in or accumulate, "costs_in pass exists to accumulate"
-    regen = variant.tloop == "regen"
-    half2 = variant.tloop == "half2"
-    if regen:
-        assert (model == "full_body" and not with_noise_input
-                and accumulate and not costs_in), (
-            "tloop='regen' is the full_body RNG-mode A/B arm (white noise)"
-        )
-    if half2:
-        assert model == "full_body", "tloop='half2' is a full_body A/B arm"
-    groups = frozenset(variant.groups)
-    ablated = groups != _ALL_GROUPS
-    if ablated:
-        assert model == "full_body" and not costs_in, (
-            "group ablation arms exist for the full_body floor accounting"
-        )
-        assert groups <= _ALL_GROUPS and "sample" in groups
-        assert variant.tloop == "fori", "ablate the production loop form"
-    do_loop = "loop" in groups
-    do_euler = "euler" in groups
-    do_zmp = "zmp" in groups
-    do_dist = "dist" in groups
+    nu = tm1 * u_dim
+    n_sum = nu * (2 if second_moment else 1)
+    npad = num_slots(horizon, u_dim, second_moment)
+    cap2 = np.float32(DIST_CAP * DIST_CAP)
+    # offsets into the packed parameter vector (see fused_sample_rollout_cost)
+    o_u = _NSCAL
+    o_sig = o_u + nu
+    o_lo = o_sig + u_dim
+    o_hi = o_lo + u_dim
+    o_st = o_hi + u_dim
+    o_ref = o_st + n_state
+    steer_max = rate_max = None
+    if model == "rate_limited_steering":
+        from ccv_mppi_path_tracker_tpu.ops.rollout import steer_limits
+
+        steer_max, rate_max = steer_limits(model)
 
     def kernel(*refs):
         refs = list(refs)
-        uprev, sigma, umin, umax, ref_xy, state0, scal, seed = refs[:8]
-        pos = 8
-        noise = None
-        if with_noise_input:
-            noise = refs[pos]
-            pos += 1
-        cin = cost_out = None
-        if costs_in:
-            # costs-free elite second pass: per-sample costs stream IN from
-            # pass 1; controls are regenerated (same seed -> identical
-            # samples) and only the masked online update runs — no rollout,
-            # no distance scan, no ZMP chain, no cost output.
-            cin = refs[pos]
-            pos += 1
-            acc_out, u_out, m_ref = refs[pos:pos + 3]
-        else:
-            cost_out, acc_out, u_out, m_ref = refs[pos:pos + 4]
+        prm, seed_ref = refs.pop(0), refs.pop(0)
+        noise = refs.pop(0) if noise_in else None
+        cin = refs.pop(0) if costs_in else None
+        cost_out = None if costs_in else refs.pop(0)
+        part_out = refs.pop(0) if accumulate else None
 
-        # Fleet (batched) mode: grid is (B, k_tiles); per-robot inputs are
-        # SMEM *blocks* selected by the robot grid index (full (B, ...)
-        # arrays overflow the 1 MB SMEM at fleet sizes), outputs are blocked
-        # per robot. Single-robot mode: 1-D grid over k tiles.
-        if batched:
-            kidx = pl.program_id(1)
-            up = lambda t, j: uprev[0, t, j]
-            refp = lambda j, c: ref_xy[0, j, c]
-            st = lambda k: state0[0, 0, k]
-            sc = lambda i: scal[0, 0, i]
-            seed0 = seed[0, 0, 0]
-            nz = (lambda t, j: noise[0, t, j]) if with_noise_input else None
-            co = cost_out.at[0] if cost_out is not None else None
-            ci = (lambda: cin[0]) if costs_in else None
-            accv = acc_out.at[0]
-        else:
-            kidx = pl.program_id(0)
-            up = lambda t, j: uprev[t, j]
-            refp = lambda j, c: ref_xy[j, c]
-            st = lambda k: state0[k]
-            sc = lambda i: scal[i]
-            seed0 = seed[0]
-            nz = (lambda t, j: noise[t, j]) if with_noise_input else None
-            co = cost_out
-            ci = (lambda: cin[...]) if costs_in else None
-            accv = acc_out
-
-        if not with_noise_input:
-            pltpu.prng_seed(seed0 + kidx)
-
-        # Online-softmax state: acc rows [0, tm1*u_dim) hold per-(sublane,
-        # lane) partial sums of exp(-(cost - m)/lam) * u[t, j]; the last row
-        # group holds the partial normalizer; m_ref (SMEM scratch, persists
-        # across the sequential grid) is the running min cost. The first k
-        # tile of each robot initializes (the acc block is revisited across
-        # k tiles and swapped per robot).
-        n_acc = tm1 * u_dim * (2 if second_moment else 1) + 1
-
-        @pl.when(kidx == 0)
-        def _init():
-            accv[...] = jnp.zeros((8 * n_acc, _LANES), jnp.float32)
-            m_ref[0] = jnp.inf
-
-        dt = sc(0)
-        v_ref = sc(1)
-
-        # --- sample controls for the whole tile ---------------------------
-        # Written straight to the u_out VMEM scratch and read back per
-        # rollout step — keeping all (T-1)*U tiles live as SSA values makes
-        # Mosaic's register allocation explode at T=30+. Exploration noise is
-        # optionally colored over the horizon (ops/sampling.py color_noise);
-        # beta=0 is bit-exact white noise.
+        start = pl.program_id(0) * block
+        idx = start + jax.lax.broadcasted_iota(jnp.int32, (block,), 0)
+        sc = lambda i: prm[i]
         beta = sc(15)
         bscale = jnp.sqrt(1.0 - beta * beta)
-        eps_prev = [None] * u_dim
-        if not with_noise_input:
-            draw_normal = _make_normal_stream((_ROWS, _LANES))
+        seed = seed_ref[0]
+        sample_idx = idx.astype(jnp.uint32)
 
-        def draw_u_row(t):
-            # regen arm: one t-row of controls drawn on demand. Fixed
-            # ceil(U/2) Box-Muller pairs per row (no held-over half) so the
-            # rollout loop and the re-seeded update loop consume IDENTICAL
-            # streams. White noise only (the arm ignores noise_beta).
-            etas = []
-            while len(etas) < u_dim:
-                n1, n2 = _normals_pair((_ROWS, _LANES))
-                etas.extend((n1, n2))
-            vals = []
+        def draw(t, eps_prev):
+            """Controls of step t (U vectors) and the coloured noise state."""
+            if noise_in:
+                etas = [noise[t, j, pl.ds(start, block)] for j in range(u_dim)]
+            else:
+                etas = kernel_normals(seed, sample_idx, t, u_dim)
+            if eps_prev is None:
+                eps = etas
+            else:
+                eps = [beta * e + bscale * n for e, n in zip(eps_prev, etas)]
+            u = []
             for j in range(u_dim):
-                val = up(t, j) + sigma[j] * etas[j]
-                val = jnp.clip(val, umin[j], umax[j])
-                if steer_off and j == 2:
+                val = sc(o_u + t * u_dim + j) + sc(o_sig + j) * eps[j]
+                val = jnp.minimum(jnp.maximum(val, sc(o_lo + j)), sc(o_hi + j))
+                if steer_off and j == STEER_DIM:
                     val = jnp.zeros_like(val)
-                vals.append(val)
-            return vals
+                u.append(val)
+            return u, eps
 
-        # regen never touches the u_out scratch: the rollout draws controls
-        # on the fly and the update loop regenerates the same stream.
-        # costs_in (the elite second pass) skips the sampling loop too —
-        # with no rollout, each control is consumed exactly once by the
-        # update, so it is drawn inline there (same stream, no scratch).
-        for t in range(0 if (regen or costs_in) else tm1):
-            for j in range(u_dim):
-                if with_noise_input:
-                    eta = nz(t, j)
-                else:
-                    eta = draw_normal()
-                eps = eta if t == 0 else beta * eps_prev[j] + bscale * eta
-                eps_prev[j] = eps
-                val = up(t, j) + sigma[j] * eps
-                val = jnp.clip(val, umin[j], umax[j])
-                if steer_off and j == 2:
-                    val = jnp.zeros_like(val)
-                u_out[t, j] = val
-
-        # --- rollout + cost ----------------------------------------------
         if costs_in:
-            # elite pass 2: costs stream in from pass 1 (identical to
-            # what a recompute would produce bit-for-bit — same ops, same
-            # inputs) so the whole rollout/distance-scan/ZMP block and
-            # the cost write are skipped.
-            cost = ci()
+            cost = cin[...]
         else:
-            x = jnp.full((_ROWS, _LANES), st(0))
-            y = jnp.full((_ROWS, _LANES), st(1))
-            yaw = jnp.full((_ROWS, _LANES), st(2))
-            cost = jnp.zeros((_ROWS, _LANES), jnp.float32)
-
-            dist_form = variant.dist_form
-            mindist_unroll = variant.mindist_unroll
-
-            def path_d2(xv, yv):
-                # Centered expanded form (ops/mindist.py module docstring): the
-                # wrapper passes [2*(ref-c), |ref-c|^2] per reference point and a
-                # rollout start centered at c = ref[0], so the inner loop is two
-                # FMAs + one min per point — 3 vector ops vs 5 for the
-                # difference form, on the kernel's largest op group. Chunked
-                # loop (vs the old unroll=num_ref) keeps the Mosaic program
-                # small at large T*T_ref — full unrolling inside the t-loop was
-                # the dominant cold-compile cost (141 s at the flagship config).
-                if dist_form == "expanded":
-                    pn = xv * xv + yv * yv
-
-                    def term(j):
-                        return refp(j, 2) - xv * refp(j, 0) - yv * refp(j, 1)
-                else:  # "difference" (A/B experiment arm)
-                    def term(j):
-                        dx = xv - refp(j, 0)
-                        dy = yv - refp(j, 1)
-                        return dx * dx + dy * dy
-
-                m = jnp.full(xv.shape, jnp.inf)  # (rows or rows/2, LANES)
-                if mindist_unroll == "full":
-                    for j in range(num_ref):  # constant indices, full unroll
-                        m = jnp.minimum(m, term(j))
-                else:
-                    # hand-rolled chunk: Mosaic's scan lowering only accepts
-                    # unroll=1 or full, so the body statically covers `ch`
-                    # points and the remainder runs as a static epilogue.
-                    ch = 8
-                    nch = num_ref // ch
-
-                    def body(i, m):
-                        base = i * ch
-                        for p in range(ch):
-                            m = jnp.minimum(m, term(base + p))
-                        return m
-
-                    if nch:
-                        m = jax.lax.fori_loop(0, nch, body, m, unroll=1)
-                    for j in range(nch * ch, num_ref):
-                        m = jnp.minimum(m, term(j))
-                if dist_form == "expanded":
-                    m = pn + m
-                return jnp.minimum(jnp.maximum(m, 0.0), cap2)
-
-            def t_loop(bound, body, carry):
-                # The time loop is a fori_loop with dynamic indexing into the
-                # u_out VMEM block by default — unrolling T=30..100 steps made
-                # Mosaic compiles pathologically slow before the distance scan
-                # was chunked; tloop="unroll" is the constant-index A/B arm,
-                # "block4" the 4-steps-per-iteration arm (loop control +
-                # dynamic-index overhead amortized 4x, remainder as a
-                # constant-index epilogue).
-                if variant.tloop == "unroll":
-                    for t in range(bound):
-                        carry = body(t, carry)
-                    return carry
-                if variant.tloop == "block4":
-                    nblk = bound // 4
-
-                    def blk(b, carry):
-                        t0 = b * 4
-                        for i in range(4):
-                            carry = body(t0 + i, carry)
-                        return carry
-
-                    if nblk:
-                        carry = jax.lax.fori_loop(0, nblk, blk, carry)
-                    for t in range(nblk * 4, bound):
-                        carry = body(t, carry)
-                    return carry
-                return jax.lax.fori_loop(0, bound, body, carry)
-
-            # The time loop is a fori_loop with dynamic indexing into the u_out
-            # VMEM block — unrolling T=30..100 steps made Mosaic compiles
-            # pathologically slow.
-            if model == "rate_limited_steering":
-                # limits resolved from the REGISTERED model's constants so a
-                # custom-limit variant stays consistent (ops/rollout.py
-                # steer_limits; ADVICE r3)
-                from ccv_mppi_path_tracker_tpu.ops.rollout import steer_limits
-
-                STEER_MAX, RATE_MAX = steer_limits(model)
-
-                steer = jnp.full((_ROWS, _LANES), st(3))
-
-                def rl_body(t, carry):
-                    x, y, yaw, steer, cost = carry
-                    cost += sc(2) * path_d2(x, y)
-                    v, w = u_out[t, 0], u_out[t, 1]
-                    rate = jnp.clip(u_out[t, 2], -RATE_MAX, RATE_MAX)
-                    dv = v - v_ref
-                    cost += sc(3) * dv * dv
-                    heading = yaw + steer
-                    x = x + v * jnp.cos(heading) * dt
-                    y = y + v * jnp.sin(heading) * dt
-                    yaw = yaw + w * dt
-                    steer = jnp.clip(steer + rate * dt, -STEER_MAX, STEER_MAX)
-                    return x, y, yaw, steer, cost
-
-                x, y, yaw, steer, cost = t_loop(
-                    tm1, rl_body, (x, y, yaw, steer, cost)
-                )
-                cost += sc(2) * path_d2(x, y)  # final state's path term
-            elif model in ("unicycle", "steering_unicycle"):
-                # path term over all T states, velocity term over T-1 controls
-                # (ops/costs.py tracking_cost)
-                def step_body(t, carry):
-                    x, y, yaw, cost = carry
-                    cost += sc(2) * path_d2(x, y)
-                    v, w = u_out[t, 0], u_out[t, 1]
-                    dv = v - v_ref
-                    cost += sc(3) * dv * dv
-                    heading = yaw if model == "unicycle" else yaw + u_out[t, 2]
-                    x = x + v * jnp.cos(heading) * dt
-                    y = y + v * jnp.sin(heading) * dt
-                    yaw = yaw + w * dt
-                    return x, y, yaw, cost
-
-                x, y, yaw, cost = t_loop(
-                    tm1, step_body, (x, y, yaw, cost)
-                )
-                cost += sc(2) * path_d2(x, y)  # final state's path term
-            else:  # full_body (ops/costs.py full_body_cost)
-                roll = jnp.full((_ROWS, _LANES), st(3))
-                pitch = jnp.full((_ROWS, _LANES), st(4))
-                mass, c = sc(9), sc(10)
-                ixx = sc(11)
-                gz = sc(14)
-                probe = sc(18)  # runtime 0.0: DCE anchor for ablation arms
-                if do_zmp:
-                    dyaw0 = yaw - sc(8)
-                    cost += sc(7) * dyaw0 * dyaw0
-
-                # scalar reciprocals hoisted out of the loop: /dt (twice) and
-                # /bz were VECTOR divisions per propagation — multi-pass VPU
-                # ops — replaced by one scalar divide each + vector multiplies.
-                # FP effect is <=2 ulp on da/hgx/zmp_y, far inside the kernel
-                # parity tolerances (tests/test_kernel.py rtol 2e-5).
-                rdt = 1.0 / dt
-                bz = mass * gz
-                rbz = 1.0 / bz
-
-                def fb_step(x, y, yaw, roll, pitch, cost, u_t, v_next,
-                            rollv_next):
-                    # one full-body cost + Euler step given this step's
-                    # controls u_t (5 tiles) and the t+1 entries the ZMP
-                    # finite differences read (v, roll_v). The do_* gates
-                    # are trace-time constants — the production variant
-                    # (all groups on) traces exactly the ungated body; the
-                    # floor-accounting arms (scripts/kernel_floor.py) drop
-                    # suffix groups and anchor otherwise-dead loads/carries
-                    # through the runtime-zero probe scalar so Mosaic keeps
-                    # the remaining work.
-                    if do_dist:
-                        cost += sc(2) * path_d2(x, y)
-                    v, w, direc, roll_v, pitch_v = u_t
-                    if do_zmp:
-                        dv = v - v_ref
-                        cost += sc(3) * dv * dv
-                        droll_v = rollv_next - roll_v
-                        cost += sc(5) * droll_v * droll_v
-                        cost += sc(6) * jnp.where(v < 0.0, v * v, 0.0)
-                        # ZMP chain (models/full_body.py zmp_chain)
-                        da = (v_next - v) * rdt
-                        ac = v * w
-                        cd, sd = jnp.cos(direc), jnp.sin(direc)
-                        ay = da * sd + ac * cd
-                        hgx = ixx * droll_v * rdt
-                        # zmp_y needs only M_O_x = com_y*b_z - com_z*b_y - hg_x
-                        com_y = -c * jnp.sin(roll)
-                        com_z = c * jnp.cos(pitch) * jnp.cos(roll)
-                        by = -mass * ay
-                        mo_x = com_y * bz - com_z * by - hgx
-                        zmp_y = mo_x * rbz
-                        cost += sc(4) * zmp_y * zmp_y
-                    else:
-                        # keep the t+1 u_out reads (they are part of the
-                        # loop group's memory traffic) and, when the Euler
-                        # group is also off, the u_t reads alive
-                        cost += probe * (v_next + rollv_next)
-                        if not do_euler:
-                            cost += probe * (v + w + direc + roll_v + pitch_v)
-                    if do_euler:
-                        # Euler step (runs for every t in [0, T-3]; states at
-                        # T-2 and T-1 are never read by the cost)
-                        heading = yaw + direc
-                        x = x + v * jnp.cos(heading) * dt
-                        y = y + v * jnp.sin(heading) * dt
-                        yaw = yaw + w * dt
-                        roll = roll + roll_v * dt
-                        pitch = pitch + pitch_v * dt
-                    return x, y, yaw, roll, pitch, cost
-
-                if regen:
-                    # dependency-breaking arm: controls are drawn ON THE FLY
-                    # (held in registers between steps), never written to /
-                    # re-read from the u_out VMEM scratch
-                    def fb_body_r(t, carry):
-                        x, y, yaw, roll, pitch, cost = carry[:6]
-                        u_t = carry[6:]
-                        u_n = draw_u_row(t + 1)
-                        out = fb_step(x, y, yaw, roll, pitch, cost, u_t,
-                                      u_n[0], u_n[3])
-                        return out + tuple(u_n)
-
-                    u0 = draw_u_row(0)
-                    out = jax.lax.fori_loop(
-                        0, horizon - 2, fb_body_r,
-                        (x, y, yaw, roll, pitch, cost) + tuple(u0),
-                    )
-                    cost = out[5]
-                elif half2:
-                    # two independent half-tile chains through one t-loop:
-                    # each iteration advances both, so one chain's VPU work
-                    # can hide the other's carried-dependency latency.
-                    # Halves are LOADED as half-tiles straight from the
-                    # u_out ref (pl.ds) — sublane-slicing a loaded full tile
-                    # crashes Mosaic's layout pass.
-                    H = _ROWS // 2
-                    assert H % 8 == 0, "half tiles must stay vreg-aligned"
-
-                    def half_init(i):
-                        z = jnp.zeros((H, _LANES), jnp.float32)
-                        yaw_h = z + st(2)
-                        dy = yaw_h - sc(8)
-                        return (z + st(0), z + st(1), yaw_h, z + st(3),
-                                z + st(4), sc(7) * dy * dy)
-
-                    def fb_body_h(t, carry):
-                        a, b = carry
-                        out = []
-                        for i, h in enumerate((a, b)):
-                            sl = pl.ds(i * H, H)
-                            u = tuple(u_out[t, j, sl] for j in range(u_dim))
-                            out.append(fb_step(
-                                *h, u, u_out[t + 1, 0, sl],
-                                u_out[t + 1, 3, sl],
-                            ))
-                        return tuple(out)
-
-                    a, b = jax.lax.fori_loop(
-                        0, horizon - 2, fb_body_h,
-                        (half_init(0), half_init(1)),
-                    )
-                    cost = jnp.concatenate([a[5], b[5]], axis=0)
-                elif not do_loop:
-                    # sample-only ablation arm: no t-loop at all; one probe
-                    # -anchored read keeps the sampled scratch alive
-                    cost += probe * u_out[0, 0]
-                elif variant.tloop == "rowload":
-                    # A/B arm: ONE dynamic-indexed load of the whole
-                    # (u_dim, rows, 128) control row per step (plus the two
-                    # t+1 tile loads) — 3 dynamic indexes per iteration
-                    # instead of 7, same 7 tiles of traffic. Discriminates
-                    # per-dynamic-index overhead from read bandwidth in the
-                    # floor table's 2.7 ms loop group. Bit-exact vs fori.
-                    def fb_body_rl(t, carry):
-                        x, y, yaw, roll, pitch, cost = carry
-                        ut = u_out[t]
-                        u_t = tuple(ut[j] for j in range(u_dim))
-                        return fb_step(x, y, yaw, roll, pitch, cost, u_t,
-                                       u_out[t + 1, 0], u_out[t + 1, 3])
-
-                    out = jax.lax.fori_loop(
-                        0, horizon - 2, fb_body_rl,
-                        (x, y, yaw, roll, pitch, cost),
-                    )
-                    x, y, yaw, roll, pitch, cost = out
-                elif variant.tloop == "carry5":
-                    # A/B arm: carry step t+1's five control tiles in
-                    # registers across iterations so each iteration issues
-                    # 5 dynamic-indexed u_out reads instead of 7 (the two
-                    # t+1 reads were re-read at t+1 anyway). Same values,
-                    # same op order — bit-exact vs fori.
-                    def fb_body_c(t, carry):
-                        x, y, yaw, roll, pitch, cost = carry[:6]
-                        u_t = carry[6:]
-                        u_next = tuple(u_out[t + 1, j] for j in range(u_dim))
-                        out = fb_step(x, y, yaw, roll, pitch, cost, u_t,
-                                      u_next[0], u_next[3])
-                        return out + u_next
-
-                    u0 = tuple(u_out[0, j] for j in range(u_dim))
-                    out = jax.lax.fori_loop(
-                        0, horizon - 2, fb_body_c,
-                        (x, y, yaw, roll, pitch, cost) + u0,
-                    )
-                    x, y, yaw, roll, pitch, cost = out[:6]
-                else:
-                    def fb_body(t, carry):
-                        x, y, yaw, roll, pitch, cost = carry
-                        u_t = tuple(u_out[t, j] for j in range(u_dim))
-                        return fb_step(x, y, yaw, roll, pitch, cost, u_t,
-                                       u_out[t + 1, 0], u_out[t + 1, 3])
-
-                    out = t_loop(
-                        horizon - 2, fb_body, (x, y, yaw, roll, pitch, cost)
-                    )
-                    x, y, yaw, roll, pitch, cost = out
-                    if do_euler and not do_dist:
-                        # final kinematic carries are otherwise dead
-                        cost += probe * (x + y + yaw)
-                    if do_euler and not do_zmp:
-                        cost += probe * (roll + pitch)
-
-            co[...] = cost
-
-        # --- online softmax-weighted update ------------------------------
-        # accumulate=False (the costs-only pass of the two-pass elite_frac
-        # flow) skips it entirely: the acc output stays at its _init zeros
-        # and the caller reads only the cost vector.
+            cost = _rollout_cost(model, draw, sc, horizon, num_ref, block,
+                                 o_st, o_ref, cap2, steer_max, rate_max)
+            cost_out[...] = cost
         if not accumulate:
             return
-        lam = sc(16)
-        if masked:
-            # K didn't fill the last tile: zero-weight the padded lanes and
-            # keep them out of the running-min baseline, so the update equals
-            # the exact K-sample result (full tiles: the compare is all-true).
-            row_ids = jax.lax.broadcasted_iota(jnp.int32, (_ROWS, _LANES), 0)
-            col_ids = jax.lax.broadcasted_iota(jnp.int32, (_ROWS, _LANES), 1)
-            idx = (kidx * _ROWS + row_ids) * _LANES + col_ids
-            valid = idx.astype(jnp.float32) < sc(19)
-            tile_min = jnp.min(jnp.where(valid, cost, jnp.inf))
-        else:
-            tile_min = jnp.min(cost)
-        m_prev = m_ref[0]
-        m_new = jnp.minimum(m_prev, tile_min)
-        m_ref[0] = m_new
-        # exact rescale of prior partials to the improved baseline; on the
-        # first tile m_prev = inf so the factor is exp(-inf) = 0 over zeros.
-        # neg_rlam: one scalar divide instead of a vector divide per element
-        neg_rlam = -1.0 / lam
-        factor = jnp.exp((m_prev - m_new) * neg_rlam)
-        w = jnp.exp((cost - m_new) * neg_rlam)
-        w = jnp.where(cost <= sc(17), w, 0.0)  # elite mask (thresh=inf: all)
-        if masked:
-            w = jnp.where(valid, w, 0.0)
 
-        def part8(x):
-            # (ROWS, LANES) -> (8, LANES) sublane-group partial sums: keeps
-            # every accumulator op a native full (8, 128) vreg op instead of
-            # a masked single-sublane slice.
-            return jnp.sum(x.reshape(_ROWS // 8, 8, _LANES), axis=0)
+        # block-local softmax; padded lanes carry no weight and no min
+        valid = idx < num_samples
+        m_b = jnp.min(jnp.where(valid, cost, jnp.inf))
+        w = jnp.exp((cost - m_b) * (-1.0 / sc(16)))
+        w = jnp.where(valid & (cost <= sc(17)), w, 0.0)
 
-        nrow = n_acc - 1
-        accv[8 * nrow:8 * (nrow + 1), :] = (
-            accv[8 * nrow:8 * (nrow + 1), :] * factor + part8(w)
-        )
-        if regen:
-            # reset the per-tile PRNG and regenerate the identical control
-            # stream the rollout consumed — no u_out reads anywhere
-            pltpu.prng_seed(seed0 + kidx)
-        if costs_in:
-            # Elite second pass: regenerate pass 1's EXACT sampling stream
-            # inline — same (t, j) order, same held-over Box-Muller halves,
-            # same colored-noise recurrence — multiply by the weight and
-            # fold straight into the accumulators. The u_out VMEM round
-            # trip (write in a sampling loop, read back here) is gone
-            # entirely; unlike the rollout-bearing 'regen' arm (a measured
-            # loss, ab_tloop2 — the rollout reads each control twice) this
-            # pass consumes each control exactly once. Bit-identical to
-            # the scratch path by construction.
-            if not with_noise_input:
-                draw_inline = _make_normal_stream((_ROWS, _LANES))
-            eps_prev_in = [None] * u_dim
-        for t in range(tm1):
-            u_row = draw_u_row(t) if regen else None
+        slot = jax.lax.broadcasted_iota(jnp.int32, (npad,), 0)
+
+        def accumulate_row(t, u, acc):
             for j in range(u_dim):
-                r = t * u_dim + j
-                if costs_in:
-                    eta = nz(t, j) if with_noise_input else draw_inline()
-                    eps = (eta if t == 0
-                           else beta * eps_prev_in[j] + bscale * eta)
-                    eps_prev_in[j] = eps
-                    u_tj = up(t, j) + sigma[j] * eps
-                    u_tj = jnp.clip(u_tj, umin[j], umax[j])
-                    if steer_off and j == 2:
-                        u_tj = jnp.zeros_like(u_tj)
-                elif regen:
-                    u_tj = u_row[j]
-                else:
-                    u_tj = u_out[t, j]
-                wu = w * u_tj
-                accv[8 * r:8 * (r + 1), :] = (
-                    accv[8 * r:8 * (r + 1), :] * factor + part8(wu)
-                )
+                wu = w * u[j]
+                acc = jnp.where(slot == t * u_dim + j, jnp.sum(wu), acc)
                 if second_moment:
-                    r2 = tm1 * u_dim + r
-                    accv[8 * r2:8 * (r2 + 1), :] = (
-                        accv[8 * r2:8 * (r2 + 1), :] * factor
-                        + part8(wu * u_tj)
-                    )
+                    acc = jnp.where(slot == nu + t * u_dim + j,
+                                    jnp.sum(wu * u[j]), acc)
+            return acc
+
+        acc = jnp.zeros((npad,), jnp.float32)
+        acc = jnp.where(slot == n_sum, jnp.sum(w), acc)
+        acc = jnp.where(slot == n_sum + 1, m_b, acc)
+        u, eps = draw(0, None)
+        acc = accumulate_row(0, u, acc)
+
+        def pass_b(t, carry):
+            eps, acc = carry
+            u, eps = draw(t, eps)
+            return eps, accumulate_row(t, u, acc)
+
+        _, acc = jax.lax.fori_loop(1, tm1, pass_b, (eps, acc))
+        part_out[...] = acc
 
     return kernel
+
+
+def _rollout_cost(model, draw, sc, horizon, num_ref, block, o_st, o_ref,
+                  cap2, steer_max, rate_max):
+    """Pass A: one cost per sample of the block (ops/costs.py semantics)."""
+    tm1 = horizon - 1
+    dt, v_ref = sc(0), sc(1)
+    full = lambda v: jnp.full((block,), v, jnp.float32)
+
+    def path_d2(x, y):
+        # centered expanded form (ops/mindist.py), same expression tree
+        m = full(jnp.inf)
+        for j in range(num_ref):
+            r = o_ref + 3 * j
+            m = jnp.minimum(m, sc(r + 2) - x * sc(r) - y * sc(r + 1))
+        return jnp.minimum(jnp.maximum(x * x + y * y + m, 0.0), cap2)
+
+    x, y, yaw = full(sc(o_st)), full(sc(o_st + 1)), full(sc(o_st + 2))
+    cost = full(0.0)
+    u, eps = draw(0, None)
+
+    if model == "full_body":
+        roll, pitch = full(sc(o_st + 3)), full(sc(o_st + 4))
+        mass, c, ixx, gz = sc(9), sc(10), sc(11), sc(14)
+        bz = mass * gz
+        hx = ixx / dt
+        dyaw0 = yaw - sc(8)
+        cost = cost + sc(7) * dyaw0 * dyaw0
+
+        def body(t, carry):
+            x, y, yaw, roll, pitch, cost, u, eps = carry
+            u_next, eps = draw(t + 1, eps)
+            v, w, direc, roll_v, pitch_v = u
+            cost = cost + sc(2) * path_d2(x, y)
+            dv = v - v_ref
+            cost = cost + sc(3) * dv * dv
+            droll_v = u_next[3] - roll_v
+            cost = cost + sc(5) * droll_v * droll_v
+            cost = cost + sc(6) * jnp.where(v < 0.0, v * v, 0.0)
+            # ZMP chain (models/full_body.py zmp_chain), y component
+            da = (u_next[0] - v) / dt
+            ac = v * w
+            ay = da * jnp.sin(direc) + ac * jnp.cos(direc)
+            com_y = -c * jnp.sin(roll)
+            com_z = c * jnp.cos(pitch) * jnp.cos(roll)
+            mo_x = com_y * bz - com_z * (-mass * ay) - droll_v * hx
+            zmp_y = mo_x / bz
+            cost = cost + sc(4) * zmp_y * zmp_y
+            heading = yaw + direc
+            x = x + v * jnp.cos(heading) * dt
+            y = y + v * jnp.sin(heading) * dt
+            yaw = yaw + w * dt
+            roll = roll + roll_v * dt
+            pitch = pitch + pitch_v * dt
+            return x, y, yaw, roll, pitch, cost, u_next, eps
+
+        carry = jax.lax.fori_loop(
+            0, horizon - 2, body, (x, y, yaw, roll, pitch, cost, u, eps)
+        )
+        return carry[5]
+
+    # steering-angle state of rate_limited_steering (a placeholder otherwise)
+    steer = full(sc(o_st + 3) if steer_max is not None else 0.0)
+
+    def step(x, y, yaw, steer, cost, u):
+        cost = cost + sc(2) * path_d2(x, y)
+        v, w = u[0], u[1]
+        dv = v - v_ref
+        cost = cost + sc(3) * dv * dv
+        if model == "unicycle":
+            heading = yaw
+        elif steer_max is not None:
+            heading = yaw + steer
+        else:
+            heading = yaw + u[2]
+        x = x + v * jnp.cos(heading) * dt
+        y = y + v * jnp.sin(heading) * dt
+        yaw = yaw + w * dt
+        if steer_max is not None:
+            rate = jnp.minimum(jnp.maximum(u[2], -rate_max), rate_max)
+            steer = jnp.minimum(jnp.maximum(steer + rate * dt, -steer_max),
+                                steer_max)
+        return x, y, yaw, steer, cost
+
+    def body(t, carry):
+        x, y, yaw, steer, cost, u, eps = carry
+        x, y, yaw, steer, cost = step(x, y, yaw, steer, cost, u)
+        u, eps = draw(t + 1, eps)
+        return x, y, yaw, steer, cost, u, eps
+
+    x, y, yaw, steer, cost, u, _ = jax.lax.fori_loop(
+        0, tm1 - 1, body, (x, y, yaw, steer, cost, u, eps))
+    x, y, yaw, _, cost = step(x, y, yaw, steer, cost, u)
+    return cost + sc(2) * path_d2(x, y)  # final state's path term
 
 
 def fused_sample_rollout_cost(
@@ -837,226 +380,108 @@ def fused_sample_rollout_cost(
     second_moment: bool = False,
     accumulate: bool = True,
     costs_in: Optional[jax.Array] = None,
-    variant: KernelVariant = DEFAULT_VARIANT,
 ):
-    """Run the fused kernel.
+    """Run the fused kernel for one robot (``jax.vmap`` it for a fleet).
 
-    variant: static kernel-structure switches (time-loop form, distance-scan
-    form, op-group ablation) — see :class:`KernelVariant`. Production
-    serving always passes the default; the ablation scripts pass the A/B
-    arms explicitly.
+    u_prev: (T-1, U) sampling mean; sigma/u_min/u_max: (U,); ref_xy: (T_ref,
+    2); state0: (S,); scal: (_NSCAL,) from :func:`pack_scalars`; seed: ()
+    uint32. noise (optional, parity mode): (T-1, K, U) standard normals used
+    instead of the in-kernel generator.
 
-    accumulate=False skips the online softmax-weighted update: the partial
-    outputs come back all-zero and only the cost vector is meaningful — used
-    for the first (threshold-finding) pass of the two-pass elite_frac flow,
-    whose accumulation would be discarded.
-
-    costs_in: per-sample costs (K,) (or (B, K) in fleet mode) from a prior
-    accumulate=False pass — the COSTS-FREE elite second pass: the kernel
-    regenerates identical controls (same seed / same injected noise), reads
-    each sample's cost from this input instead of re-running the rollout +
-    distance scan + ZMP chain, and runs only the thresholded online update.
-    No cost output is produced; the return is (u_partial, norm_partial[,
-    m2_partial]). Bit-identical to a full recompute pass because pass 1's
-    costs ARE what the recompute would produce.
-
-    u_prev: (T-1, U) f32; ref_xy: (T_ref, 2); state0: (S,); scal: (_NSCAL,);
-    seed: (1,) int32; noise (optional, parity mode): the ``tile_noise``
-    layout (T-1, U, k_pad/128, 128). ANY num_samples is accepted: K is
-    padded up to whole (rows, 128) tiles and the padded tail is exactly
-    zero-weighted in the online update (see ``padded_k``); the returned
-    cost vector is sliced back to K.
-    Returns (costs (K,), u_partial ((T-1)*U, 8, 128), norm_partial (8, 128)):
-    per-(sublane, lane) partial sums of the softmax-weighted update under the
-    baseline min(costs) — ``u_opt = u_partial.sum((-2, -1)).reshape(T-1, U) /
-    norm_partial.sum()`` on one device; under sample sharding rescale both by
-    exp(-(local_min - global_min)/lam) before the psum. With
-    ``second_moment=True`` a fourth output holds the weighted sum of u^2
-    in the same layout (adaptive-covariance sampling).
+    Returns ``(costs, partials)``: costs (K,) and partials (K_pad/BLOCK,
+    num_slots) for :func:`combine_partials`. ``accumulate=False`` skips pass
+    B and returns ``(costs, None)``; ``costs_in`` (K,) skips pass A — the
+    costs come in from an ``accumulate=False`` pass over the same samples —
+    and returns ``(None, partials)``. ANY K is accepted: K is padded to whole
+    blocks and the padded tail carries no weight.
     """
     assert model in KERNEL_MODELS, (
         f"fused kernel does not implement model {model!r}; use the XLA path"
     )
-    batched = u_prev.ndim == 3
-    if batched:
-        B, tm1, u_dim = u_prev.shape
-    else:
-        tm1, u_dim = u_prev.shape
+    assert accumulate or costs_in is None, "costs_in exists to accumulate"
+    tm1, u_dim = u_prev.shape
     horizon = tm1 + 1
-    num_ref = ref_xy.shape[-2]
-    # Centered expanded-form distance constants (ops/mindist.py docstring):
-    # the kernel consumes [2*(ref-c), |ref-c|^2] rows plus a rollout start
-    # translated by -c, with c = ref[0] (per robot in fleet mode). Positions
-    # enter the cost only through distances, which are translation-invariant,
-    # and rollout states never leave the kernel, so the shift is unobservable.
-    c, rc2, rn = center_ref(ref_xy)
-    if variant.dist_form == "expanded":
-        ref_xy = jnp.concatenate([rc2, rn[..., None]], axis=-1)
-    else:  # difference-form A/B arm: centered raw refs in the first 2 cols
-        ref_xy = jnp.concatenate([0.5 * rc2, rn[..., None]], axis=-1)
-    state0 = jnp.concatenate([state0[..., :2] - c, state0[..., 2:]], axis=-1)
-    rows = tile_rows(horizon, u_dim, noise is not None, num_samples)
-    tile = rows * _LANES
-    k_pad = padded_k(num_samples, rows)
-    masked = k_pad != num_samples
-    grid_k = k_pad // tile
-    rows_total = k_pad // _LANES
-    # slot 18 = probe (runtime 0.0, DCE anchor for ablation arms); slot 19 =
-    # num_valid: the kernel zero-weights padded-tail lanes exactly
-    probe = jnp.zeros(scal.shape[:-1] + (1,), scal.dtype)
-    nval = jnp.full(scal.shape[:-1] + (1,), num_samples, scal.dtype)
-    scal = jnp.concatenate([scal, probe, nval], axis=-1)
+    num_ref = ref_xy.shape[0]
+    n_state = state0.shape[0]
+    block = block_size(num_samples)
+    k_pad = -(-num_samples // block) * block
+    n_blocks = k_pad // block
 
+    # Centered expanded-form distance constants (ops/mindist.py): rows
+    # [2*(ref-c), |ref-c|^2] and a start state translated by -c, c = ref[0].
+    # Positions enter the cost only through distances, so the shift is
+    # unobservable.
+    c, rc2, rn = center_ref(ref_xy)
+    refc = jnp.concatenate([rc2, rn[:, None]], axis=-1)
+    state0 = jnp.concatenate([state0[:2] - c, state0[2:]])
+    prm = jnp.concatenate([
+        scal, u_prev.reshape(-1), sigma, u_min, u_max, state0,
+        refc.reshape(-1),
+    ]).astype(jnp.float32)
+    inputs = [prm, jnp.reshape(seed, (1,)).astype(jnp.uint32)]
+    in_specs = [pl.no_block_spec, pl.no_block_spec]
+    if noise is not None:
+        # (T-1, K, U) -> (T-1, U, K_pad): one contiguous row per (t, u)
+        noise = jnp.transpose(noise, (0, 2, 1))
+        noise = jnp.pad(noise, ((0, 0), (0, 0), (0, k_pad - num_samples)))
+        inputs.append(noise)
+        in_specs.append(pl.no_block_spec)
     if costs_in is not None:
-        # pad the tail with +inf (zero weight; masked lanes are also excluded
-        # from the running-min baseline) and fold into the lane-tile layout
-        pad = k_pad - num_samples
-        if pad:
-            costs_in = jnp.pad(costs_in, [(0, 0)] * (costs_in.ndim - 1)
-                               + [(0, pad)], constant_values=jnp.inf)
-        costs_in = costs_in.reshape(
-            costs_in.shape[:-1] + (rows_total, _LANES)
-        )
+        inputs.append(jnp.pad(costs_in, (0, k_pad - num_samples),
+                              constant_values=jnp.inf))
+        in_specs.append(pl.BlockSpec((block,), lambda i: (i,)))
+
+    vma = frozenset({vma_axis}) if vma_axis is not None else frozenset()
+    out_shape, out_specs = [], []
+    if costs_in is None:
+        out_shape.append(jax.ShapeDtypeStruct((k_pad,), jnp.float32, vma=vma))
+        out_specs.append(pl.BlockSpec((block,), lambda i: (i,)))
+    if accumulate:
+        npad = num_slots(horizon, u_dim, second_moment)
+        out_shape.append(
+            jax.ShapeDtypeStruct((n_blocks, npad), jnp.float32, vma=vma))
+        out_specs.append(pl.BlockSpec((None, npad), lambda i: (i, 0)))
 
     kernel = _make_kernel(
-        model, horizon, num_ref, u_dim, noise is not None, steer_off, rows,
-        batched=batched, second_moment=second_moment, accumulate=accumulate,
-        masked=masked, costs_in=costs_in is not None, variant=variant,
+        model, horizon, num_ref, u_dim, n_state, block, num_samples,
+        noise_in=noise is not None, steer_off=steer_off,
+        second_moment=second_moment, accumulate=accumulate,
+        costs_in=costs_in is not None,
     )
-
-    smem = lambda: pl.BlockSpec(memory_space=pltpu.SMEM)
-    if batched:
-        # per-robot SMEM blocks: leading robot axis blocked to 1, per-robot
-        # shape kept in the last dims (Mosaic requires the last two block
-        # dims to equal the array's). 2-D per-robot arrays gain a singleton
-        # middle axis for the same reason.
-        state0 = state0[:, None, :]
-        scal = scal[:, None, :]
-        seed = seed.reshape(-1, 1, 1)
-        sblk = lambda shape: pl.BlockSpec(
-            (1,) + shape, lambda b, i: (b,) + (0,) * len(shape),
-            memory_space=pltpu.SMEM,
-        )
-        in_specs = [
-            sblk((tm1, u_dim)),          # u_prev
-            smem(), smem(), smem(),      # sigma, u_min, u_max (shared)
-            sblk((num_ref, 3)),          # centered-ref constants
-            sblk((1, state0.shape[-1])), # state0
-            sblk((1, _NSCAL + 2)),       # scal (+ probe, num_valid)
-            sblk((1, 1)),                # seed
-        ]
-    else:
-        in_specs = [smem(), smem(), smem(), smem(), smem(), smem(), smem(),
-                    smem()]
-    inputs = [u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed]
-    if noise is not None:
-        assert noise.shape[-2:] == (rows_total, _LANES), (
-            f"noise must be pre-padded/tiled to {(rows_total, _LANES)} lanes "
-            f"(tile_noise with k_pad={k_pad}); got {noise.shape}"
-        )
-        if batched:
-            in_specs.append(
-                pl.BlockSpec(
-                    (1, tm1, u_dim, rows, _LANES),
-                    lambda b, i: (b, 0, 0, i, 0),
-                    memory_space=pltpu.VMEM,
-                )
-            )
-        else:
-            in_specs.append(
-                pl.BlockSpec(
-                    (tm1, u_dim, rows, _LANES),
-                    lambda i: (0, 0, i, 0),
-                    memory_space=pltpu.VMEM,
-                )
-            )
-        inputs.append(noise)
-    if costs_in is not None:
-        if batched:
-            in_specs.append(
-                pl.BlockSpec((1, rows, _LANES), lambda b, i: (b, i, 0),
-                             memory_space=pltpu.VMEM)
-            )
-        else:
-            in_specs.append(
-                pl.BlockSpec((rows, _LANES), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM)
-            )
-        inputs.append(costs_in)
-
-    # Under shard_map the outputs are device-varying over the samples axis;
-    # the vma annotation is required when check_vma is on.
-    vma = frozenset({vma_axis}) if vma_axis is not None else frozenset()
-    n_groups = tm1 * u_dim * (2 if second_moment else 1) + 1
-    acc_rows = 8 * n_groups
-    acc_spec_b = pl.BlockSpec((1, acc_rows, _LANES), lambda b, i: (b, 0, 0),
-                              memory_space=pltpu.VMEM)
-    acc_spec_s = pl.BlockSpec((acc_rows, _LANES), lambda i: (0, 0),
-                              memory_space=pltpu.VMEM)
-    if batched:
-        grid = (B, grid_k)
-        out_shape = (
-            jax.ShapeDtypeStruct((B, rows_total, _LANES), jnp.float32, vma=vma),
-            jax.ShapeDtypeStruct((B, acc_rows, _LANES), jnp.float32, vma=vma),
-        )
-        out_specs = (
-            pl.BlockSpec((1, rows, _LANES), lambda b, i: (b, i, 0),
-                         memory_space=pltpu.VMEM),
-            # constant k index: each robot's accumulator block is revisited
-            # across its k tiles (k is the innermost grid axis)
-            acc_spec_b,
-        )
-    else:
-        grid = (grid_k,)
-        out_shape = (
-            jax.ShapeDtypeStruct((rows_total, _LANES), jnp.float32, vma=vma),
-            jax.ShapeDtypeStruct((acc_rows, _LANES), jnp.float32, vma=vma),
-        )
-        out_specs = (
-            pl.BlockSpec((rows, _LANES), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            # constant index map: the accumulator block is revisited (and
-            # kept in VMEM) across the sequential grid
-            acc_spec_s,
-        )
-    if costs_in is not None:
-        # no cost output in the costs-free pass
-        out_shape = out_shape[1:]
-        out_specs = out_specs[1:]
-    scratch_shapes = [
-        # sampled u tile; the costs_in pass never touches it (controls are
-        # regenerated inline in the update loop), so it shrinks to a stub
-        pltpu.VMEM((tm1, u_dim, rows, _LANES) if costs_in is None
-                   else (1, 1, 8, _LANES), jnp.float32),
-        pltpu.SMEM((1,), jnp.float32),  # running min cost
-    ]
-
     outs = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(n_blocks,),
         in_specs=in_specs,
         out_specs=out_specs,
         out_shape=out_shape,
-        scratch_shapes=scratch_shapes,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=max(1, min(NUM_WARPS, block // 32))),
         interpret=interpret,
+        name=f"mppi_fused_{model}",
     )(*inputs)
-    if costs_in is not None:
-        costs, acc = None, outs[0] if isinstance(outs, (tuple, list)) else outs
-    else:
-        costs, acc = outs
-    nu = tm1 * u_dim
-    if batched:
-        acc = acc.reshape(B, n_groups, 8, _LANES)
-        m2 = (acc[:, nu:-1],) if second_moment else ()
-        if costs_in is not None:
-            return (acc[:, :nu], acc[:, -1]) + m2
-        costs = costs.reshape(B, k_pad)[:, :num_samples]
-        return (costs, acc[:, :nu], acc[:, -1]) + m2
-    acc = acc.reshape(n_groups, 8, _LANES)
-    m2 = (acc[nu:-1],) if second_moment else ()
-    if costs_in is not None:
-        return (acc[:nu], acc[-1]) + m2
-    return (costs.reshape(k_pad)[:num_samples], acc[:nu], acc[-1]) + m2
+    outs = list(outs)
+    costs = None if costs_in is not None else outs.pop(0)[:num_samples]
+    partials = outs.pop(0) if accumulate else None
+    return costs, partials
+
+
+def combine_partials(partials, baseline, lam, horizon: int, u_dim: int,
+                     second_moment: bool = False):
+    """Fold the blocks' partials into (sum w*u (T-1, U), sum w*u^2 or None,
+    sum w), all under the weights exp(-(c - baseline)/lam).
+
+    Block b's sums were taken under its own min m_b; exp(-(m_b -
+    baseline)/lam) moves them to ``baseline`` exactly. ``baseline`` is the
+    min cost over every sample (over every shard when sample-sharded, where
+    the caller then psums the three results)."""
+    nu = (horizon - 1) * u_dim
+    n_sum = nu * (2 if second_moment else 1)
+    scale = jnp.exp(-(partials[:, n_sum + 1] - baseline) / lam)
+    tot = jnp.sum(scale[:, None] * partials[:, :n_sum + 1], axis=0)
+    u_num = tot[:nu].reshape(horizon - 1, u_dim)
+    u2_num = tot[nu:n_sum].reshape(horizon - 1, u_dim) if second_moment else None
+    return u_num, u2_num, tot[n_sum]
 
 
 def pack_scalars(dt, cp, yaw_ref0, model_params=None, noise_beta=0.0,

@@ -4,7 +4,7 @@ The reference scans all T local reference points for every rollout state —
 an O(K*T^2) triple loop (calc_MinDistance, src/diff_drive_mppi.cpp:183-192)
 capped by initializing ``min_distance = 100.0`` (:185).
 
-TPU formulation: the **centered expanded form**. With c = ref[0] (the first
+Formulation: the **centered expanded form**. With c = ref[0] (the first
 window point), xc = p - c and rc_j = ref_j - c:
 
     |p - ref_j|^2 = |xc|^2 + (|rc_j|^2 - 2 xc . rc_j)
@@ -12,8 +12,7 @@ window point), xc = p - c and rc_j = ref_j - c:
 Only the parenthesized term depends on j, so the min scan is two FMAs + one
 min per reference point (|rc_j|^2 and 2*rc_j are precomputed once per window)
 versus five ops for the difference form ``(x-rx)^2 + (y-ry)^2`` — a ~40% op
-cut on what is the single largest op group of the fused kernel
-(artifacts/roofline.json: 150 of 351 vector ops per state propagation).
+cut on what is, by op count, the largest group of the fused kernel.
 |xc|^2 is added back once after the min, then the result is clamped to
 [0, DIST_CAP^2] (the lower clamp absorbs the tiny negative residue the
 expanded form can produce at d ~ 0; the upper is the reference's 100 m cap).
@@ -42,8 +41,8 @@ parity suite's tolerances) is preserved, not re-negotiated.
 Two execution regimes (same arithmetic, so results match):
 
 - broadcast-min below _BCAST_LIMIT elements: one fused (.., R) broadcast +
-  min-reduce, elementwise on purpose (a dot_general would route the cross
-  term through the MXU's bf16 passes on TPU).
+  min-reduce, elementwise on purpose (a dot_general could route the cross
+  term through reduced-precision matrix units, e.g. TF32 on the GPU).
 - running-min scan over R for very large problems, bounding worst-case
   memory to one (...,) buffer; 3 vector ops per reference point. The two
   regimes share the exact per-element expression tree, so they remain
@@ -61,10 +60,10 @@ import numpy as np
 DIST_CAP = 100.0
 
 # Above this (num positions x num refs) element count, use the scan form:
-# XLA materializes the (T, K, R) broadcast in HBM, and at flagship size the
-# extra traffic dominates — measured 5.4 ms vs 7.9 ms for the full-body
-# K=102400 T=30 XLA pipeline (31% faster whole-step). Below it the broadcast
-# wins (one fused kernel beats R tiny sequential ones). The two forms share
+# XLA may materialize the (T, K, R) broadcast in device memory, whose traffic
+# grows with K*T*R. Below it the broadcast is one fused kernel instead of R
+# small sequential ones. The crossover has not been measured on the GPU yet
+# (ROADMAP, speed queue). The two forms share
 # the per-element arithmetic, and fmin is exactly associative/commutative —
 # the only regime difference is XLA's reduction/contraction order, covered
 # by the parity suite's tolerances.
@@ -103,8 +102,8 @@ def min_sq_distance(xy: jax.Array, ref_xy: jax.Array) -> jax.Array:
 
     if n_pos * n_ref <= _BCAST_LIMIT:
         # One fused broadcast + min-reduce. Deliberately elementwise (NOT a
-        # dot_general): an MXU contraction would run the cross term through
-        # bf16 passes on TPU, and the identical per-element expression tree
+        # dot_general): a matrix-unit contraction could run the cross term
+        # in TF32 on the GPU, and the identical per-element expression tree
         # keeps this regime bitwise-equal to the scan regime below.
         t = rn - xc[..., 0:1] * rc2[:, 0] - xc[..., 1:2] * rc2[:, 1]
         m = jnp.min(t, axis=-1)
@@ -121,8 +120,8 @@ def min_sq_distance(xy: jax.Array, ref_xy: jax.Array) -> jax.Array:
         return jnp.minimum(carry, t), None
 
     # unroll=8: XLA fuses 8 reference points into ONE loop body, so the
-    # (..., 2) positions are re-read from HBM once per 8 points instead of
-    # once per point (+ 1/8th the carry round-trips) — the scan regime is
-    # HBM-traffic-bound at flagship sizes. Bitwise-identical to unroll=1.
+    # (..., 2) positions are re-read from device memory once per 8 points
+    # instead of once per point (+ 1/8th the carry round-trips).
+    # Bitwise-identical to unroll=1.
     m, _ = jax.lax.scan(body, init, (rc2, rn), unroll=8)
     return jnp.minimum(jnp.maximum(pn + m, zero), cap)

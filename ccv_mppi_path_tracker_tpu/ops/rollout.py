@@ -3,8 +3,7 @@
 ``lax.scan`` over the horizon with all K samples advanced per step — the
 vectorized form of the reference's per-sample Euler loop
 (src/diff_drive_mppi.cpp:111-124). The scan is sequential by physics (state
-t+1 depends on state t); parallelism lives in the K batch axis, which XLA
-lays out on TPU vector lanes.
+t+1 depends on state t); parallelism lives in the K batch axis.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ def steer_limits(model_name: str):
     from the REGISTERED model's constants — not the module defaults — so a
     custom-limit variant re-registered under the same name keeps the
     closed-form rollout and fused kernel in agreement with its own step
-    function (ADVICE r3)."""
+    function."""
     from ccv_mppi_path_tracker_tpu.models.rate_limited_steering import (
         RATE_MAX,
         STEER_MAX,
@@ -91,8 +90,7 @@ def rollout_closed_form(model_name: str, state0: jax.Array,
     x_t = x_0 + dt * sum_{s<t} v_s cos(heading_s) and likewise y; roll/pitch
     are plain control integrals. Replacing the T-step sequential scan with
     cumsums turns the single-trajectory optimal-sequence re-roll from ~T
-    dependent micro-fusions (~0.15 ms at T=30 on v5e — the largest non-kernel
-    term in the step, artifacts/profile_step.json) into one parallel fusion.
+    dependent micro-fusions into one parallel fusion.
 
     Float caveat: XLA's cumsum may associate differently than left-to-right
     scan, so results agree with :func:`rollout` to round-off (~1e-6 f32 rel),
@@ -105,12 +103,12 @@ def rollout_closed_form(model_name: str, state0: jax.Array,
     v, w = controls[..., 0], controls[..., 1]
     batched = state0.ndim > 1
     if batched:
-        # prefix sums as one lower-triangular (T-1, T-1) matmul on the
-        # otherwise-idle MXU: measured 2.4x faster than jnp.cumsum at
-        # K=102400 T=30 (artifacts/xla_breakdown.json, max |diff| 3e-7 f32;
-        # HIGHEST precision keeps f32 operands at ~f32 accuracy on the MXU's
-        # bf16 passes). The single-trajectory re-roll keeps the cumsum —
-        # a (T,T) matmul over one column is all launch overhead.
+        # prefix sums as one lower-triangular (T-1, T-1) matmul (max |diff|
+        # vs cumsum ~3e-7 f32). HIGHEST precision keeps f32 operands at f32
+        # accuracy (no TF32 on the GPU). Whether cumsum or an associative
+        # scan is faster on the GPU is not measured yet. The
+        # single-trajectory re-roll keeps the cumsum — a (T,T) matmul over
+        # one column is all launch overhead.
         tri = jnp.tril(jnp.ones((controls.shape[0],) * 2, controls.dtype))
 
     def integrate(rate):

@@ -12,7 +12,7 @@ preserved:
   (src/full_body_mppi.cpp:517).
 
 Layout is time-major (T-1, K, U): ``lax.scan`` consumes the leading axis, and
-K rides the TPU lane dimension in every elementwise op.
+K is the contiguous, vectorized axis of every elementwise op.
 """
 
 from __future__ import annotations
@@ -51,19 +51,16 @@ def color_noise(white, beta):
 
 
 def draw_standard_normals(key, shape, dtype):
-    """The production exploration-noise draw, through the RBG generator.
-
-    The default threefry normal was 63% of the whole XLA-pipeline step at
-    K=102400 (artifacts/xla_breakdown.json — threefry computes its counters
-    on the VPU; RBG uses the TPU's hardware RNG instruction). The key is
-    deterministically derived from the solver's threefry key, so
-    resume/replay stay exact; the stream differs from threefry's but any
-    fixed stream is equally valid for exploration noise (parity tests
-    inject ``noise`` explicitly and never hit this path).
+    """The production exploration-noise draw, through the RBG generator
+    (XLA's RngBitGenerator). Whether threefry would be faster on the GPU is
+    not measured yet. The key is deterministically derived from the solver's
+    threefry key, so resume/replay stay exact; the stream differs from
+    threefry's but any fixed stream is equally valid for exploration noise
+    (parity tests inject ``noise`` explicitly and never hit this path).
 
     The 4-word rbg key comes from TWO independent threefry children (one
     split block) rather than duplicating the 2-word parent — duplicated
-    halves correlate the rbg key words (ADVICE r3). Note (MIGRATION.md):
+    halves correlate the rbg key words. Note (MIGRATION.md):
     jax documents rbg output as unstable across XLA versions/backends, so
     seeded streams are reproducible within an environment, not across
     releases.

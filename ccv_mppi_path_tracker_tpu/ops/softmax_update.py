@@ -37,11 +37,9 @@ def elite_threshold(
     descends into the bucket containing the target rank.
 
     The per-round counts are SCATTER-FREE: a dense (K, 2^digit_bits)
-    equality-compare reduced over K — TPU scatter-adds (`.at[].add`)
-    serialize and measured 4-15x slower than even a full sort at these K
-    (BENCH_DETAIL.md round 4); the compare+sum form vectorizes cleanly and
-    beats the sort it replaced (v5e, K=1M: see artifacts/ab_elite.json
-    "select" entry). digit_bits trades rounds against per-round compare
+    equality-compare reduced over K, which vectorizes cleanly (no
+    scatter-add). Whether a sort or ``lax.top_k`` is faster on the GPU is
+    not measured yet. digit_bits trades rounds against per-round compare
     width: the default is 4 (8 rounds of 16-wide compares) on one device
     and 8 sharded — ceil(nbits/8) = 4 exact integer psum rounds for f32,
     so at DCN latencies the collectives, not the flops, bound the sharded
@@ -56,7 +54,7 @@ def elite_threshold(
 
     # Canonicalize NaN -> +inf: negative-sign NaNs would otherwise map below
     # -inf under the bit-key transform (a NaN cost carries zero softmax
-    # weight either way; ADVICE r4).
+    # weight either way).
     costs = jnp.where(jnp.isnan(costs), jnp.inf, costs)
 
     nbits = costs.dtype.itemsize * 8
@@ -171,11 +169,13 @@ def weighted_update(
 
     weights: (K,) globally normalized; samples: (T-1, K, U).
     Returns (T-1, U) (reference determine_OptimalSolution,
-    src/diff_drive_mppi.cpp:225-246). The contraction over K is a matmul that
-    XLA places on the MXU for large K.
+    src/diff_drive_mppi.cpp:225-246). The contraction over K runs at
+    ``Precision.HIGHEST``: an f32 matmul on the GPU otherwise defaults to
+    TF32 (~3 decimal digits), far outside the oracle tolerances.
     """
     u = jnp.einsum(
-        "k,tku->tu", weights, samples, preferred_element_type=samples.dtype
+        "k,tku->tu", weights, samples, preferred_element_type=samples.dtype,
+        precision=jax.lax.Precision.HIGHEST,
     )
     if axis_name is not None:
         u = jax.lax.psum(u, axis_name)

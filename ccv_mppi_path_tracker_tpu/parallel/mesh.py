@@ -2,7 +2,8 @@
 
 MPPI's one natural parallel axis is the K sample trajectories (the reference
 runs them in a serial C++ loop, src/diff_drive_mppi.cpp:92-124). The mesh is
-1-D over all chips — ICI within a slice, DCN across hosts — and the entire
+1-D over all devices (NVLink within a host, the network across hosts) and
+the entire
 communication pattern is the trio {pmin(baseline), psum(sum w), psum(sum w*u)}
 in ops/softmax_update.py.
 """

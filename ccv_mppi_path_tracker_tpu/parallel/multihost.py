@@ -1,10 +1,10 @@
 """Multi-host initialization.
 
-On a multi-host pod slice, every host runs the same program;
+On a multi-host cluster, every host runs the same program;
 ``jax.distributed.initialize`` wires the hosts into one runtime so
-``jax.devices()`` spans the full slice and the samples mesh covers it. The
-softmax reductions then ride ICI within each slice and DCN across hosts —
-no other communication exists in sample-parallel MPPI, so scaling is
+``jax.devices()`` spans every device and the samples mesh covers it. The
+softmax reductions then run over NVLink within a host and the network across
+hosts — no other communication exists in sample-parallel MPPI, so scaling is
 collective-latency bound (SURVEY.md section 2.5).
 """
 
@@ -23,8 +23,9 @@ def initialize_multihost(
 ) -> bool:
     """Initialize jax.distributed when running under a multi-host launcher.
 
-    Arguments default from the standard env (JAX_COORDINATOR_ADDRESS etc. or
-    TPU metadata on Cloud TPU). Returns True if distributed mode was
+    The coordinator defaults from JAX_COORDINATOR_ADDRESS; nothing is
+    auto-detected, so give num_processes and process_id with it (or set
+    them through jax.distributed's own environment). Returns True if distributed mode was
     initialized, False when single-process (no coordinator configured) — the
     caller can proceed identically either way since the mesh is built from
     jax.devices().
@@ -34,7 +35,7 @@ def initialize_multihost(
     already = getattr(jax.distributed, "is_initialized", None)
     if callable(already) and already():
         return True
-    if coordinator_address is None and "TPU_WORKER_HOSTNAMES" not in os.environ:
+    if coordinator_address is None:
         return False
     # A coordinator IS configured past this point (explicit argument or
     # launcher env): failure to join the pod must be loud, not a silent

@@ -4,7 +4,7 @@
 (ops/softmax_update.py); here it is wrapped in ``jax.shard_map`` over the
 "samples" mesh axis. Each shard draws its own noise (per-shard fold_in of the
 cycle key), rolls out K/N trajectories, and the softmax update is globally
-exact via pmin + two psums riding ICI. Every output is replicated, so the
+exact via pmin + two psums (NCCL all-reduces on GPUs). Every output is replicated, so the
 controller state stays identical on all devices — bit-equivalent to a
 single-device run fed the concatenated noise (tests/test_sharding.py).
 """
@@ -36,7 +36,7 @@ def build_sharded_step(
     (T-1, K, U) tensor; it is split over the sample axis. All other inputs and
     all outputs are replicated. ``use_kernel`` runs the per-shard pipeline as
     the fused Pallas kernel (any per-shard K/N: the kernel masks the padded
-    tail of its last tile).
+    tail of its last block).
     ``solver_options`` forwards extra mppi_step keywords (shift_warm_start,
     delay, adapt_sigma, elite_frac, ...); elite_frac selects elites by
     GLOBAL cost rank across all shards (ops/softmax_update.py
@@ -68,9 +68,9 @@ def build_sharded_step(
             **(solver_options or {}),
         )
 
-    # check_vma stays on for the XLA pipeline; the Pallas-kernel variant
-    # trips a dynamic_slice vma limitation in interpret mode, so checking is
-    # relaxed there (its results are verified against the XLA path in tests).
+    # check_vma stays on for the XLA pipeline; the pallas_call has no vma
+    # rule for its internals, so checking is relaxed there (its results are
+    # verified against the XLA path in tests and chip_smoke.py --multi).
     check_vma = not use_kernel
     with_noise = jax.jit(
         jax.shard_map(

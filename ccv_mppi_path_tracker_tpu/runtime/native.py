@@ -1,7 +1,7 @@
 """ctypes bindings to the native host runtime (native/ccv_runtime.cpp).
 
-Compiled on demand with g++ (no pybind11 in this image); the .so is cached
-next to the source. Exposes:
+Compiled on demand with g++ (no pybind11 needed); the .so is cached next to
+the source. Exposes:
 
 - :class:`RateExecutor` — absolute-deadline periodic scheduler (the
   reference's ros::Rate with honest deadline-miss accounting);
@@ -33,11 +33,19 @@ _lib = None
 
 
 def _build():
+    # Link to a private name and rename into place, so a process that loads
+    # the library while another is building it never maps a partial file.
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread",
-        "-o", _SO, _SRC,
+        "-o", tmp, _SRC,
     ]
-    subprocess.run(cmd, check=True, capture_output=True)
+    out = subprocess.run(cmd, capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(
+            f"g++ failed to build {_SO} (exit {out.returncode}):\n{out.stderr}"
+        )
+    os.replace(tmp, _SO)
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,16 +1,14 @@
 """Fleet-scale batched control: many independent robots on one program.
 
-The reference controls one robot per process. On TPU the whole solver is a
+The reference controls one robot per process. Here the whole solver is a
 pure function, so a fleet of B robots — each with its own pose, warm start,
 PRNG stream, and (optionally) its own course — is just ``vmap`` over the
 controller state: one jitted program computes B complete MPPI updates
 (B x K rollouts) per cycle. With B=256, K=1024 that is a quarter-million
-trajectories per control tick on a single chip — production serving shape.
+trajectories per control tick on a single device — production serving shape.
 """
 
 from __future__ import annotations
-
-
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +34,7 @@ def init_fleet(cfg: SolverConfig, num_robots: int, seed: int = 0,
 
 
 def build_fleet_step(cfg: SolverConfig, shared_path: bool = True,
-                     use_kernel: bool = False):
+                     use_kernel: bool = False, kernel_interpret: bool = False):
     """Jitted fleet step.
 
     Returns ``step(ctrls, states, path(s), dt, sp, cp, model_params=None)``
@@ -44,19 +42,16 @@ def build_fleet_step(cfg: SolverConfig, shared_path: bool = True,
     the fleet when ``shared_path`` (one course, many robots) or per-robot
     batched otherwise. dt and params are shared.
 
-    ``use_kernel`` runs the whole fleet through ONE natively-batched Pallas
-    kernel launch (grid = robots x sample-tiles) — vmap of a pallas_call does
-    not lower on TPU (SMEM block constraints), so the kernel carries the
-    robot axis itself.
+    The fleet is ``jax.vmap`` over the single-robot step, on either solver
+    path: with ``use_kernel`` the vmapped fused kernel gains a robot axis in
+    its grid, so one launch covers B robots x K samples.
     """
     path_axis = None if shared_path else 0
-
-    if use_kernel:
-        return _build_fleet_kernel_step(cfg, path_axis)
 
     def one(ctrl, state, path, dt, sp, cp, model_params):
         return mppi_step(
             cfg, ctrl, state, path, dt, sp, cp, model_params=model_params,
+            use_kernel=use_kernel, kernel_interpret=kernel_interpret,
         )
 
     vstep = jax.vmap(one, in_axes=(0, 0, path_axis, None, None, None, None))
@@ -64,85 +59,5 @@ def build_fleet_step(cfg: SolverConfig, shared_path: bool = True,
     @jax.jit
     def step(ctrls, states, path, dt, sp, cp, model_params=None):
         return vstep(ctrls, states, path, dt, sp, cp, model_params)
-
-    return step
-
-
-def _build_fleet_kernel_step(cfg: SolverConfig, path_axis):
-    """Fleet control step on the batched fused kernel (one launch for B
-    robots x K samples), mirroring mppi_step's kernel branch per robot."""
-    from ccv_mppi_path_tracker_tpu.core.random import next_cycle_key
-    from ccv_mppi_path_tracker_tpu.core.types import StepResult
-    from ccv_mppi_path_tracker_tpu.kernels.rollout_cost import (
-        fused_sample_rollout_cost,
-        pack_scalars,
-    )
-    from ccv_mppi_path_tracker_tpu.ops.rollout import (
-        CLOSED_FORM_MODELS,
-        rollout,
-        rollout_closed_form,
-    )
-    from ccv_mppi_path_tracker_tpu.ops.softmax_update import softmax_weights
-    from ccv_mppi_path_tracker_tpu.paths.resample import resample_reference
-
-    model = get_model(cfg.model)
-    tm1 = cfg.horizon - 1
-
-    @jax.jit
-    def step(ctrls, states, path, dt, sp, cp, model_params=None):
-        mp = model_params
-        if mp is None:
-            mp = model.default_params
-        keys = jax.vmap(next_cycle_key)(ctrls.key)  # (B, 2) key array
-        carry_keys, use_keys = keys[:, 0], keys[:, 1]
-        seeds = jax.vmap(
-            lambda k: jax.random.randint(k, (), 0, 2**31 - 1, dtype=jnp.int32)
-        )(use_keys)
-
-        refs = jax.vmap(
-            lambda p, s: resample_reference(p, s[:2], cp.v_ref, dt, cfg.horizon),
-            in_axes=(path_axis, 0),
-        )(path, states)
-        mpk = mp if cfg.model == "full_body" else None
-        scal = jax.vmap(
-            lambda y0: pack_scalars(dt, cp, y0, mpk, noise_beta=sp.noise_beta,
-                                    lam=sp.lam)
-        )(refs.yaw[:, 0])
-
-        costs, u_rows, s_rows = fused_sample_rollout_cost(
-            ctrls.u_prev,            # (B, T-1, U)
-            sp.control_noise,
-            sp.u_min,
-            sp.u_max,
-            refs.xy,                 # (B, T, 2)
-            states,                  # (B, S)
-            scal,                    # (B, _NSCAL)
-            seeds,                   # (B,)
-            num_samples=cfg.num_samples,
-            model=cfg.model,
-            steer_off=cfg.steer_off,
-            interpret=jax.default_backend() != "tpu",
-        )
-        _, stats = jax.vmap(lambda c: softmax_weights(c, sp.lam))(costs)
-        u_opt = (
-            jnp.sum(u_rows, axis=(-2, -1)).reshape(-1, tm1, model.num_controls)
-            / jnp.sum(s_rows, axis=(-2, -1))[:, None, None]
-        )
-        if cfg.model in CLOSED_FORM_MODELS:
-            # scan-free planned-path re-roll (ops/rollout.py closed form)
-            opt_states = jax.vmap(
-                lambda s, u: rollout_closed_form(cfg.model, s, u, dt)
-            )(states, u_opt)
-        else:
-            opt_states = jax.vmap(lambda s, u: rollout(model.step, s, u, dt))(
-                states, u_opt
-            )
-        next_ctrls = ctrls.__class__(
-            u_prev=u_opt, key=carry_keys, step=ctrls.step + 1
-        )
-        return next_ctrls, StepResult(
-            u_opt=u_opt, u0=u_opt[:, 0], ref=refs, opt_states=opt_states,
-            stats=stats,
-        )
 
     return step

@@ -157,7 +157,8 @@ def main():
     cfg, sp, cp, course, path = make_problem()
     # auto falls back to the XLA pipeline: no kernel arm for custom models
     assert not should_use_kernel(
-        cfg.num_samples, cfg.horizon, backend="tpu", model=cfg.model
+        cfg.num_samples, cfg.horizon, model=cfg.model,
+        device_kind="NVIDIA H100 80GB HBM3",
     )
     solver = MPPISolver(cfg, use_kernel="auto")
     print(f"model registered: {BICYCLE.name} "

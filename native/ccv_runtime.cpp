@@ -1,9 +1,9 @@
-// ccv_runtime — native host runtime for the TPU MPPI framework.
+// ccv_runtime — native host runtime for the MPPI framework.
 //
 // The reference's C++ exists to host the controllers inside ROS: a fixed-rate
 // loop (ros::Rate at src/diff_drive_mppi.cpp:334), pub/sub topic plumbing,
 // and side-car CSV recorders (src/record_state.py). This library provides the
-// TPU-native equivalents around the JAX compute path:
+// equivalents around the JAX compute path:
 //
 //   * RateExecutor  — absolute-deadline periodic scheduler (clock_nanosleep)
 //                     with measured-dt and deadline-miss accounting; the

@@ -5,7 +5,7 @@ COVERAGE.md cites two numbers: the learned sampling distribution's cold-start
 cost improvement (diff/learned_sampler.py) and the meta-trained update rule's
 realized-cost reduction at equal sample budget (diff/learned_optimizer.py).
 This script regenerates both from fixed seeds and prints one JSON object —
-the committed provenance for those claims (VERDICT r1 weak#6).
+the committed provenance for those claims.
 
     python scripts/learning_eval.py            # CPU, ~2-4 min
 
@@ -225,7 +225,7 @@ def eval_sampler_closed_loop(trials: int = 40, cycles: int = 50):
 
 
 def eval_l2o_closed_loop(num_steps: int = 150):
-    """CLOSED-LOOP value of the meta-trained update rule (VERDICT r3 #7):
+    """CLOSED-LOOP value of the meta-trained update rule:
     drive the tracking loop with learned_update_step vs vanilla mppi_step on
     the training course AND a held-out course (different amplitude/
     frequency), same seeds, and compare executed RMSE."""
@@ -313,7 +313,7 @@ def main():
     out = {
         "learned_sampler": eval_sampler(args.trials),
         "learned_optimizer": eval_l2o(),
-        # closed-loop evidence (VERDICT r3 #7): the same components scored
+        # closed-loop evidence: the same components scored
         # by executed tracking RMSE through the receding-horizon loop
         "learned_sampler_closed_loop": eval_sampler_closed_loop(),
         "learned_optimizer_closed_loop": eval_l2o_closed_loop(),

@@ -66,7 +66,7 @@ def main():
 
     # TWO-RUN overlay comparisons — the reference's actual headline figures
     # (graph2.py:37-41 with/without steering; zmp_graph2.py + the archived
-    # controlled/uncontrolled PNG pair). VERDICT r4 missing #2.
+    # controlled/uncontrolled PNG pair).
     from ccv_mppi_path_tracker_tpu.core.presets import steering_launch
 
     scfg, ssp, scp, scourse = steering_launch(num_samples=2048)

@@ -1,15 +1,15 @@
 #!/usr/bin/env python
 """Multi-host sample-sharded MPPI demo.
 
-Run the same script on every host of a pod slice (e.g. via your cluster
-launcher); on a single dev box it degrades gracefully to all local devices:
+Run the same script on every host of a cluster (e.g. via your cluster
+launcher); on a single machine it degrades gracefully to all local devices:
 
     python scripts/multihost_demo.py --num-samples 131072 --steps 50
 
-Under a launcher, jax.distributed is initialized from the standard
-environment (JAX_COORDINATOR_ADDRESS / TPU metadata); the "samples" mesh then
-spans every chip in the slice and the softmax reductions ride ICI within each
-host and DCN across hosts.
+Under a launcher, jax.distributed is initialized from JAX_COORDINATOR_ADDRESS
+(with the process count and id from jax.distributed's environment); the
+"samples" mesh then spans every device and the softmax reductions run over
+NVLink within a host and the network across hosts.
 """
 
 import argparse

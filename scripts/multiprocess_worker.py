@@ -4,9 +4,9 @@
 Launched N times (by tests/test_multiprocess.py or by hand) with a shared
 coordinator address; each process owns ``--devices-per-process`` virtual CPU
 devices and the "samples" mesh spans all N*devices_per_process global devices,
-exactly as hosts in a pod slice would span it on TPU (SURVEY.md section 2.5:
-the softmax reductions ride ICI within a process and DCN — here gRPC/gloo —
-across processes). Writes the replicated solve result and a measured
+exactly as hosts of a cluster would span it (SURVEY.md section 2.5: the
+softmax reductions run within a process and across processes — here over
+gRPC/gloo). Writes the replicated solve result and a measured
 steady-state step time to --out as npz.
 
 Example (2 processes x 4 devices):

@@ -39,7 +39,8 @@ def test_auto_kernel_falls_back_to_xla():
     from ccv_mppi_path_tracker_tpu.kernels import should_use_kernel
 
     assert not should_use_kernel(
-        1 << 20, 30, backend="tpu", model="kinematic_bicycle"
+        1 << 20, 30, model="kinematic_bicycle",
+        device_kind="NVIDIA H100 80GB HBM3",
     )
     cfg, *_ = cm.make_problem(num_samples=1 << 14, horizon=30)
     solver = MPPISolver(cfg, use_kernel="auto")

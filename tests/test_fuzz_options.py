@@ -34,7 +34,7 @@ MODELS = {
     "rate_limited_steering": (3, 4),
     "full_body": (5, 5),
 }
-K = 1024  # one 8x128 kernel tile
+K = 1024  # eight 128-sample kernel blocks
 T = 10
 
 

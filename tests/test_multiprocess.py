@@ -1,9 +1,9 @@
 """REAL multi-process distributed execution of the sample-sharded solver.
 
-This is the DCN-path test VERDICT r1 item 1 asked for: two OS processes,
+The cross-process path: two OS processes,
 each owning 4 virtual CPU devices, wired into one runtime by
 ``jax.distributed.initialize`` (gRPC coordinator + gloo CPU collectives —
-the CPU stand-in for cross-host DCN on a TPU pod). The 8-way "samples" mesh
+the CPU stand-in for a cross-host network). The 8-way "samples" mesh
 spans both processes, so the solve's pmin/psum reductions actually cross a
 process boundary, and the replicated result from each process must match the
 single-process 8-device result bit-tightly under injected noise
@@ -137,7 +137,7 @@ def test_overlapped_grad_allreduce_matches_sequential(two_process_results):
     backward-overlapped bucketed psum (num_chunks=4, 8) must equal the
     sequential single-psum gradient (num_chunks=1), both processes must
     agree, and both must match a single-process evaluation of the same
-    batch. Timings are recorded for BENCH_DETAIL.md."""
+    batch."""
     import jax.numpy as jnp
 
     from ccv_mppi_path_tracker_tpu.diff.system_id import (

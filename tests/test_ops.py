@@ -129,7 +129,14 @@ def test_weighted_update_matches_einsum():
     w, _ = softmax_weights(jnp.array(costs), 0.7)
     u = weighted_update(w, jnp.array(samples))
     ref = np.einsum("k,tku->tu", np.asarray(w), samples)
+    # f64 oracle tolerance: only summation order differs (the contraction
+    # runs at Precision.HIGHEST, so a GPU never drops it to TF32)
     np.testing.assert_allclose(np.asarray(u), ref, rtol=1e-10)
+    # f32: within a few ulps of the f64 result, far tighter than TF32's
+    # ~1e-3 relative
+    u32 = weighted_update(jnp.asarray(w, jnp.float32),
+                          jnp.asarray(samples, jnp.float32))
+    np.testing.assert_allclose(np.asarray(u32), ref, rtol=1e-5, atol=1e-6)
 
 
 def test_colored_noise_statistics_and_identity():

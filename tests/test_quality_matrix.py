@@ -1,7 +1,7 @@
 """CI gate on representative tracking-quality-matrix cells.
 
 The committed artifact (artifacts/quality_matrix.json, built by
-scripts/quality_matrix.py on the TPU) sweeps the reference's full evaluation
+scripts/quality_matrix.py) sweeps the reference's full evaluation
 grid — controllers x courses x v_ref in {0.4, 1.2, 2.0}, MPPI vs
 pure-pursuit, ZMP controlled-vs-uncontrolled (src/calc_e_rmse.py metric,
 launch/full_body_mppi.launch operating points). These tests re-run a small

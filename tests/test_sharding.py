@@ -100,7 +100,7 @@ def test_mesh_divisibility_error():
 
 
 def test_sharded_kernel_path_matches_sharded_xla():
-    """Fused Pallas kernel inside shard_map (interpret mode on CPU): same
+    """Fused Pallas kernel inside shard_map (interpreter on the CPU): same
     result as the sharded XLA pipeline under injected noise."""
     cfg, sp, cp, course = diff_drive_launch(
         num_samples=8192, horizon=T, dtype=np.float32
@@ -116,9 +116,10 @@ def test_sharded_kernel_path_matches_sharded_xla():
         np.random.RandomState(0).randn(T - 1, 8192, 2), jnp.float32
     )
     dt = jnp.float32(0.1)
-    mesh = samples_mesh(num_devices=2)  # K/N = 4096 = one kernel tile
+    mesh = samples_mesh(num_devices=2)  # K/N = 4096 = 8 kernel blocks
     step_xla = build_sharded_step(cfg, mesh)
-    step_krn = build_sharded_step(cfg, mesh, use_kernel=True)
+    step_krn = build_sharded_step(cfg, mesh, use_kernel=True,
+                                  solver_options={"kernel_interpret": True})
     _, res_x = step_xla(ctrl, state, path, dt, sp, cp, noise=noise)
     _, res_k = step_krn(ctrl, state, path, dt, sp, cp, noise=noise)
     np.testing.assert_allclose(
@@ -182,9 +183,10 @@ def test_sharded_kernel_elite_matches_single_device_xla():
         lambda c, s, n: _step(cfg, c, s, path, dt, sp, cp, noise=n,
                               elite_frac=0.25)
     )(ctrl, state, noise)
-    mesh = samples_mesh(num_devices=2)  # K/N = 4096 = one kernel tile
+    mesh = samples_mesh(num_devices=2)  # K/N = 4096 = 8 kernel blocks
     step = build_sharded_step(cfg, mesh, use_kernel=True,
-                              solver_options={"elite_frac": 0.25})
+                              solver_options={"elite_frac": 0.25,
+                                              "kernel_interpret": True})
     _, res2 = step(ctrl, state, path, dt, sp, cp, noise=noise)
     np.testing.assert_allclose(
         np.asarray(res2.u_opt), np.asarray(res1.u_opt), rtol=2e-4, atol=2e-5

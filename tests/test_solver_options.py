@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from ccv_mppi_path_tracker_tpu.core import ControllerState
 from ccv_mppi_path_tracker_tpu.core.presets import diff_drive_launch
@@ -416,38 +417,37 @@ def test_elite_threshold_select_equals_sort_any_digit_width():
             assert t_shard == want, (frac, t_shard, want)
 
 
-def test_use_kernel_auto_policy():
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+@pytest.mark.parametrize("k,t,model,kind,want", [
+    (1000, 15, "unicycle", H100, True),          # smallest timed win
+    (10000, 15, "full_body", H100, True),        # reference operating point
+    (102400, 30, "full_body", H100, True),       # flagship
+    (1048576, 30, "steering_unicycle", H100, True),
+    (1000, 14, "unicycle", H100, False),         # below anything timed
+    (500, 15, None, H100, False),
+    (102400, 30, "custom", H100, False),         # no kernel for the model
+    (102400, 30, "full_body", "NVIDIA A100-SXM4-80GB", False),  # not timed
+])
+def test_use_kernel_auto_policy(k, t, model, kind, want):
+    """use_kernel='auto' follows the table timed per device kind: the
+    kernel at or above the measured threshold on a timed kind, the XLA
+    pipeline on any other kind and for models the kernel lacks."""
+    from ccv_mppi_path_tracker_tpu.kernels import should_use_kernel
+
+    assert should_use_kernel(k, t, model=model, device_kind=kind) is want
+
+
+def test_use_kernel_auto_off_gpu_is_xla():
+    """Without a GPU (this CPU backend) auto never picks the kernel."""
     from ccv_mppi_path_tracker_tpu.core.presets import diff_drive_launch
     from ccv_mppi_path_tracker_tpu.kernels import should_use_kernel
     from ccv_mppi_path_tracker_tpu.solver import MPPISolver
 
-    # small workload -> XLA; big -> kernel (any K: the tail is masked).
-    # The round-3 XLA pipeline moved the cheap-model crossover to the
-    # measured 9.5e6-propagation win point (BENCH_DETAIL.md).
-    assert not should_use_kernel(1000, 15, backend="tpu")    # below crossover
-    assert not should_use_kernel(10240, 15, backend="tpu")   # below crossover
-    assert not should_use_kernel(102400, 30, backend="tpu")  # XLA wins here
-    assert should_use_kernel(327680, 30, backend="tpu")      # measured win
-    assert should_use_kernel(1000000, 30, backend="tpu")     # non-tile K ok
-    # per-model crossover: full_body's kernel wins already at the
-    # reference's own operating point (K=10000 T=15 padded to 10240 lanes;
-    # measured at K=10240 T=15, BENCH_DETAIL.md), the cheap 2-3 control
-    # models don't
-    assert should_use_kernel(10240, 15, backend="tpu", model="full_body")
-    assert should_use_kernel(10000, 15, backend="tpu", model="full_body")
-    assert not should_use_kernel(
-        10240, 15, backend="tpu", model="steering_unicycle"
-    )
-    # unknown (user-registered) models have no kernel arm: auto -> XLA
-    assert not should_use_kernel(102400, 30, backend="tpu", model="custom")
-    # off-TPU the RNG-mode kernel cannot run (no pltpu.prng_seed lowering):
-    # "auto" must fall back to XLA regardless of workload size. This test
-    # runs on the CPU backend, so the solver check below also covers it.
-    assert not should_use_kernel(102400, 30, backend="cpu")
+    assert not should_use_kernel(102400, 30, model="full_body")
     cfg, sp, cp, course = diff_drive_launch(num_samples=102400, horizon=30)
-    assert MPPISolver(cfg, use_kernel="auto").use_kernel is False  # CPU here
-    cfg2, *_ = diff_drive_launch(num_samples=1000, horizon=15)
-    assert MPPISolver(cfg2, use_kernel="auto").use_kernel is False
+    assert MPPISolver(cfg, use_kernel="auto").use_kernel is False
 
 
 def test_lean_mode_matches_full_result():
@@ -465,7 +465,6 @@ def test_lean_mode_matches_full_result():
             cfgk, spk, cpk, _ = diff_drive_launch(num_samples=4096, horizon=12)
             args = (cfgk, ctrl, state, path, dt, spk, cpk)
             kw["kernel_interpret"] = True
-            # interpret mode has no pltpu PRNG — inject the noise
             kw["noise"] = jnp.asarray(
                 np.random.RandomState(7).randn(11, 4096, 2), jnp.float32
             )
@@ -487,50 +486,6 @@ def test_lean_mode_matches_full_result():
     # lean result flattens to just the two actuation leaves + sigma
     leaves = jax.tree_util.tree_leaves(r)
     assert len(leaves) == 3
-
-
-def test_autotune_device_kind_and_calibration(tmp_path):
-    """use_kernel='auto' off the measured-v5e table: unknown device kinds go
-    through the one-shot micro-calibration, whose verdict is cached on disk;
-    calibration failure falls back to the v5e thresholds."""
-    from ccv_mppi_path_tracker_tpu.kernels import autotune
-
-    # known kind: straight to the measured table, no calibration
-    assert autotune.resolve_auto(1048576, 30, None, kind="TPU v5 lite")
-    assert not autotune.resolve_auto(1000, 15, None, kind="TPU v5 lite")
-
-    # unknown kind: measure() runs once, verdict cached
-    cal = str(tmp_path / "autocal.json")
-    calls = []
-
-    def fake_measure(model, k, t):
-        calls.append((model, k, t))
-        return True
-
-    assert autotune.resolve_auto(
-        2048, 15, "unicycle", kind="TPU v9", measure=fake_measure,
-        cache_file=cal,
-    )
-    assert calls == [("unicycle", 2048, 15)]
-    # second call: served from the cache file, measure not re-run
-    assert autotune.resolve_auto(
-        2048, 15, "unicycle", kind="TPU v9",
-        measure=lambda *a: (_ for _ in ()).throw(AssertionError("re-ran")),
-        cache_file=cal,
-    )
-
-    # measurement failure: falls back to the v5e table (no cache write)
-    def boom(model, k, t):
-        raise RuntimeError("no device")
-
-    assert autotune.resolve_auto(
-        1048576, 30, None, kind="TPU v9", measure=boom,
-        cache_file=str(tmp_path / "other.json"),
-    )
-    assert not autotune.resolve_auto(
-        1000, 15, None, kind="TPU v9", measure=boom,
-        cache_file=str(tmp_path / "other.json"),
-    )
 
 
 def test_elite_stale_thresh_single_pass():
